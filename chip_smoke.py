@@ -4,13 +4,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card, drives the 1080-ball
-sphere world (envs/balls.py, 36 pyramids) through its entry points with the
-kernels' launch counts read around that run alone, profiles 20 of its steps,
-runs the 120-ball drop against tests/goldens/balls_drop.npz, and prints:
+kernel against its plain PyTorch version on the card (random worlds, the
+piled 1080-ball state, and a dense 1080-sphere cube whose contact lists
+spill out of shared memory), shows that two solves of the same inputs give
+the same bits, drives the 1080-ball sphere world (envs/balls.py, 36
+pyramids) through its entry points with the kernels' launch counts read
+around that run alone, profiles 20 of its steps, runs the 120-ball drop
+against tests/goldens/balls_drop.npz, and prints:
   * the card's name and power limit (nvidia-smi);
-  * per-phase numbers (build seconds, kernel and plain times, ball-steps/s,
-    device busy share and the kernels that take the most device time);
+  * per-phase numbers (build seconds, kernel and plain times, each launch's
+    share of a solve and one sweep's cost, ball-steps/s, device busy share
+    and the kernels that take the most device time). A kernel's time is its
+    device time per call, replayed from a CUDA graph; the same calls made
+    back to back from Python are also shown, host overhead included;
   * one JSON line {"kernels": [...]} with each kernel's launches on the
     main path, error against its plain version, times and bound;
   * last, {"ok": true, "device": {...}}.
@@ -86,6 +92,22 @@ def random_solve_args(seed, N, F, device):
     return [torch.as_tensor(a, device=device) for a in arrays]
 
 
+def dense_solve_args(F, device):
+    """F spheres of r = 0.2 uniform in a 1.6 m cube (RandomState(7)): about
+    30x the live pairs of the pile, more than shared memory holds."""
+    rng = np.random.RandomState(7)
+    pos = rng.uniform(0.0, 1.6, (1, F, 3)).astype(np.float32)
+    vel = rng.uniform(-1, 1, (1, F, 3)).astype(np.float32)
+    omega = rng.uniform(-3, 3, (1, F, 3)).astype(np.float32)
+    r = np.full((1, F), 0.2, np.float32)
+    m = (4 / 3 * np.pi * r**3 * 500.0).astype(np.float32)
+    mu = rng.uniform(0.3, 1.0, (1, F)).astype(np.float32)
+    rest = rng.uniform(0.0, 0.8, (1, F)).astype(np.float32)
+    arrays = (pos, vel, omega, r, (1.0 / m).astype(np.float32),
+              (1.0 / (0.4 * m * r * r)).astype(np.float32), mu, rest)
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
 def random_spec(sw, F, device):
     spec = sw.SphereWorldSpec(
         shape_idx=np.arange(F, dtype=np.int32), free_idx=np.arange(F, dtype=np.int32),
@@ -108,6 +130,21 @@ def time_ms(fn, reps, warmup=3):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device ms of fn() replayed from a CUDA graph: the host's launch
+    overhead, larger than the device time of a short kernel on a shared
+    host, stays out of the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm: allocations and one-time attributes outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return time_ms(g.replay, reps)
 
 
 def sphere_world_bound(args):
@@ -146,6 +183,39 @@ def check_solve(sw, args, tag):
     return abs_err
 
 
+def check_repeatable(sw, args, tag):
+    """Two solves of the same inputs must give the same bits."""
+    a, b = sw.solve(*args), sw.solve(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise RuntimeError(f"{tag}: two solves of the same inputs differ")
+    log(f"bitwise repeatable {tag}: yes")
+
+
+def launch_shares(solve, reps=20):
+    """Device time per solve of each of the kernel's launches
+    (torch.profiler over `reps` solves)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solve()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            solve()
+        torch.cuda.synchronize()
+    times = {e.key: e.self_device_time_total / reps for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and ("sw_broadphase" in e.key or "sw_sweeps" in e.key)}
+    total = sum(times.values())
+    if not total:
+        log("launch shares: device time not measured (no device events)")
+        return
+    for key, us in sorted(times.items(), key=lambda kv: -kv[1]):
+        name = "sw_broadphase" if "sw_broadphase" in key else "sw_sweeps"
+        log(f"  launch {name}: {us:.2f} us/solve, {100 * us / total:.1f}% of the solve")
+
+
 def profile_steps(run_steps, state, step_ms):
     """Where a step's time goes: torch.profiler over PROFILE_STEPS steps of
     the main path. Prints device busy time per step (device-side events
@@ -174,6 +244,9 @@ def profile_steps(run_steps, state, step_ms):
         f"{sum(d[1] for d in dev) / PROFILE_STEPS:.1f} device launches/step")
     for key, count, us in dev[:6]:
         log(f"  {us / PROFILE_STEPS:8.1f} us/step {count / PROFILE_STEPS:5.1f}x/step  {key[:90]}")
+    sw = [d for d in dev if "sw_broadphase" in d[0] or "sw_sweeps" in d[0]]
+    log(f"  sphere_world kernels: {sum(d[2] for d in sw) / PROFILE_STEPS:.1f} us/step, "
+        f"{sum(d[1] for d in sw) / PROFILE_STEPS:.1f} launches/step")
 
 
 def main() -> int:
@@ -199,10 +272,24 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
-    # ---- 2. kernel vs plain: random worlds, then the piled 1080-ball world ----
+    # ---- 2. kernel vs plain: random worlds, the piled 1080-ball world, the
+    # dense cube; bitwise repeatability; the piled world's times ----
     for N in (1, 2):
-        check_solve(sw, [random_spec(sw, 96, dev), *random_solve_args(3, N, 96, dev),
-                         1 / 120, 8, 0.01, 0.0025, 0.2], f"random F=96 N={N}")
+        rargs = [random_spec(sw, 96, dev), *random_solve_args(3, N, 96, dev),
+                 1 / 120, 8, 0.01, 0.0025, 0.2]
+        _kernels.launches.clear()
+        check_solve(sw, rargs, f"random F=96 N={N}")
+        per_solve = _kernels.launches["sphere_world"]
+    log(f"sphere_world launches per solve: {per_solve}")
+    if not 1 <= per_solve <= 2:
+        raise RuntimeError(f"sphere_world made {per_solve} launches in a solve, want 1 or 2")
+    check_repeatable(sw, rargs, "random F=96 N=2")
+    dense = [random_spec(sw, 1080, dev), *dense_solve_args(1080, dev),
+             1 / 60, 9, 0.01, 0.0025, 0.2]
+    check_solve(sw, dense, "dense cube F=1080")
+    check_repeatable(sw, dense, "dense cube F=1080")
+    log(f"dense cube F=1080: {sphere_world_bound(dense)[2]} active pairs, "
+        f"kernel {graph_ms(lambda: sw.solve(*dense), reps=20):.4f} ms/solve")
     pile = BallsEnv(pyramids=36, device="cuda")
     sim = pile.sim
     state = pile.rollout_fn(PILE_STEPS)(sim.state)
@@ -213,11 +300,18 @@ def main() -> int:
     )
     F = args[1].shape[1]
     err_1080 = check_solve(sw, args, f"balls F={F} after {PILE_STEPS} steps")
+    check_repeatable(sw, args, f"balls F={F}")
     bound_ms, bound_by, active = sphere_world_bound(args)
-    kernel_ms = time_ms(lambda: sw.solve(*args), reps=50)
+    kernel_ms = graph_ms(lambda: sw.solve(*args), reps=200)
+    log(f"  back-to-back calls (host launch overhead included): "
+        f"{time_ms(lambda: sw.solve(*args), reps=50):.4f} ms/solve")
     plain_ms = time_ms(lambda: sw._torch_solve(*args), reps=5, warmup=1)
     log(f"sphere_world F={F}: {active} active pairs, kernel {kernel_ms:.4f} ms/solve, "
         f"plain {plain_ms:.4f} ms/solve, bound {bound_ms:.6f} ms ({bound_by})")
+    launch_shares(lambda: sw.solve(*args))
+    # one sweep's cost: the slope of ms/solve over the number of sweeps
+    t1, t17 = (graph_ms(lambda: sw.solve(*args[:10], n, *args[11:]), reps=200) for n in (1, 17))
+    log(f"  per sweep: {(t17 - t1) / 16 * 1e3:.3f} us (1 sweep {t1:.4f} ms, 17 sweeps {t17:.4f} ms)")
 
     # ---- 3. the main path: 1080 balls, STEPS steps, counts around it only ----
     env = BallsEnv(pyramids=36, device="cuda")
@@ -229,13 +323,12 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(_kernels.launches)
-    iters = args[10]
     n_balls = env.balls_per_world
     log(f"main path: {STEPS} steps of {n_balls} balls in {wall:.3f} s: "
         f"{n_balls * STEPS / wall:.1f} ball-steps/s, {wall / STEPS * 1e3:.4f} ms/step, "
         f"launches {launches}")
-    if launches.get("sphere_world", 0) != STEPS * iters:
-        raise RuntimeError(f"sphere_world launched {launches} times, want {STEPS * iters}")
+    if launches.get("sphere_world", 0) != STEPS * per_solve:
+        raise RuntimeError(f"sphere_world launched {launches} times, want {STEPS * per_solve}")
     for name, v in s._asdict().items():
         if v is not None and v.is_floating_point() and not torch.isfinite(v).all():
             raise RuntimeError(f"state.{name} is not finite")

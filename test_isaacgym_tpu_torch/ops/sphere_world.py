@@ -11,10 +11,12 @@ Ground-plane contacts ride along per sphere.
 Two implementations of one function:
   * `_cuda_solve`, the wrapper of the hand-written Hopper kernel
     csrc/sphere_world.cu (the port of the Pallas TPU kernel
-    `_pallas_solve` / `_sw_kernel`), for CUDA tensors;
+    `_pallas_solve` / `_sw_kernel`), for CUDA tensors: a broadphase launch
+    that lists each sphere's live contacts once, then one launch that runs
+    every Jacobi sweep on those lists; at most MAX_SPHERES spheres a world;
   * `_torch_solve`, the plain PyTorch version, line for line the JAX
     package's `_jnp_solve`, for CPU tensors and as the kernel's reference.
-`solve` picks by the tensors' device alone: no size limit, no switch.
+`solve` picks by the tensors' device alone: no switch, no fallback.
 
 Conventions match physics/contacts.py: normal points b->a (j->i), Baumgarte
 beta=0.2, slop = rest_offset + 1.5e-3, speculative targets below the slop
@@ -33,6 +35,30 @@ from . import _kernels
 # free sphere actors a world needs before it takes the dense path (the JAX
 # package's routing: below it the static contact table is cheaper)
 MIN_SPHERES = 64
+# spheres a world may hold on CUDA tensors: the kernel keeps the velocities
+# of a world in the shared memory of one 8-block cluster (kMaxF in
+# csrc/sphere_world.cu)
+MAX_SPHERES = 32768
+# launches of the kernel per solve: the broadphase, then all the sweeps
+LAUNCHES_PER_SOLVE = 2
+
+
+def pack_allow(allow: np.ndarray):
+    """The kernel's form of an (F, F) allow mask: the symmetric mask
+    allow | allow^T bit-packed as (F, ceil(F / 32)) uint32 words (bit l of
+    word w of row i is pair (i, 32 w + l)), and row_start (F + 1,) int32,
+    the offsets of each row's allowed pairs in a list of all of them
+    (row_start[F] entries in all)."""
+    sym = np.asarray(allow, bool)
+    sym = sym | sym.T
+    F = sym.shape[0]
+    words = -(-F // 32)
+    padded = np.zeros((F, 32 * words), bool)
+    padded[:, :F] = sym
+    bits = np.packbits(padded, axis=1, bitorder="little").view("<u4")
+    row_start = np.zeros(F + 1, np.int64)
+    np.cumsum(sym.sum(1), out=row_start[1:])
+    return bits.reshape(F, words), row_start.astype(np.int32)
 
 
 class SphereWorldSpec(NamedTuple):
@@ -47,18 +73,25 @@ class SphereWorldSpec(NamedTuple):
     plane_d: float
     plane_friction: float
     plane_restitution: float
-    # (F, F) uint8 allow | allow^T on a CUDA device, for the kernel; set by
-    # `to(device)`, which callers keep and reuse across solves
-    allow_dev: Optional[torch.Tensor] = None
+    # `pack_allow(allow)` on a CUDA device, for the kernel: bits as int32
+    # (F, ceil(F / 32)), row_start (F + 1,) int32; set by `to(device)`,
+    # which callers keep and reuse across solves
+    allow_bits: Optional[torch.Tensor] = None
+    row_start: Optional[torch.Tensor] = None
+    entries: int = 0  # row_start[F]: allowed pairs, each counted by both rows
 
     def to(self, device) -> "SphereWorldSpec":
-        """This spec with the kernel's copy of `allow` uploaded to `device`
+        """This spec with the kernel's packed `allow` uploaded to `device`
         (a no-op for the CPU, whose plain version reads `allow` itself)."""
         device = torch.device(device)
         if device.type != "cuda":
             return self
-        sym = (self.allow | self.allow.T).astype(np.uint8)
-        return self._replace(allow_dev=torch.as_tensor(sym, device=device))
+        bits, row_start = pack_allow(self.allow)
+        return self._replace(
+            allow_bits=torch.as_tensor(bits.view(np.int32), device=device),
+            row_start=torch.as_tensor(row_start, device=device),
+            entries=int(row_start[-1]),
+        )
 
 
 def build_spec(scene) -> Optional[SphereWorldSpec]:
@@ -288,11 +321,14 @@ _P = ctypes.c_void_p
 _F = ctypes.c_float
 _I = ctypes.c_int
 _ARGTYPES = (
-    [_P] * 20  # pos vel omega radius inv_m inv_i mu rest allow, 11 outputs/scratch
+    [_P] * 10  # pos vel omega radius inv_m inv_i mu rest allow_bits row_start
+    + [ctypes.c_longlong]  # entries
+    + [_P] * 6  # row_cnt pairs rows vel_out omega_out cf_out
     + [_I, _I, _I]  # N F iters
     + [_F] * 10  # h contact_offset slop bounce pnx pny pnz pd pf pr
     + [_I, _P]  # has_ground stream
 )
+_PAIR_BYTES, _ROW_BYTES = 80, 56  # sizeof(Pair), sizeof(Row) in the kernel
 
 
 def _library():
@@ -300,6 +336,10 @@ def _library():
     if lib.sw_solve.argtypes is None:
         lib.sw_solve.argtypes = _ARGTYPES
         lib.sw_solve.restype = ctypes.c_int
+        lib.sw_max_spheres.argtypes = []
+        lib.sw_max_spheres.restype = ctypes.c_int
+        if lib.sw_max_spheres() != MAX_SPHERES:
+            raise RuntimeError("csrc/sphere_world.cu kMaxF differs from MAX_SPHERES")
     return lib
 
 
@@ -307,8 +347,13 @@ def _cuda_solve(
     spec, pos, vel, omega, radius, inv_m, inv_i, mu, rest,
     h, iters, contact_offset, slop, bounce_thresh,
 ):
-    """Launches `iters` sweeps of the kernel on the current stream."""
+    """Launches the broadphase and the sweeps on the current stream."""
     N, F, _ = pos.shape
+    if F > MAX_SPHERES:
+        raise ValueError(
+            f"sphere_world kernel: {F} spheres in a world, more than its "
+            f"MAX_SPHERES = {MAX_SPHERES}"
+        )
     dev = pos.device
     for name, t, shape in (
         ("pos", pos, (N, F, 3)), ("vel", vel, (N, F, 3)), ("omega", omega, (N, F, 3)),
@@ -324,26 +369,28 @@ def _cuda_solve(
             raise ValueError(f"sphere_world kernel: {name} must be contiguous")
     if iters < 1:
         raise ValueError(f"sphere_world kernel: iters must be >= 1, got {iters}")
-    allow = spec.allow_dev
-    if allow is None or allow.device != dev or tuple(allow.shape) != (F, F):
+    bits, row_start = spec.allow_bits, spec.row_start
+    if (bits is None or bits.device != dev or tuple(bits.shape) != (F, -(-F // 32))
+            or row_start.device != dev or tuple(row_start.shape) != (F + 1,)):
         raise ValueError(
-            "sphere_world kernel: the spec has no (F, F) allow mask on "
-            f"{dev}; pass spec.to(device), made once and kept"
+            "sphere_world kernel: the spec has no packed allow mask for "
+            f"F = {F} on {dev}; pass spec.to(device), made once and kept"
         )
     lib = _library()
-    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
-    lam_n, lam_t = empty(N, F, F), empty(N, F, F)
-    lam_g, lamt_g = empty(N, F), empty(N, F)
-    va, wa, vb, wb = empty(N, F, 3), empty(N, F, 3), empty(N, F, 3), empty(N, F, 3)
-    vel_o, om_o, cf_o = empty(N, F, 3), empty(N, F, 3), empty(N, F, 3)
+    # one scratch allocation: row_cnt, then the pairs at the worst case (every
+    # allowed pair live: no contact is dropped), then the rows
+    at_pairs = -(-N * F * 4 // 16) * 16
+    at_rows = at_pairs + N * spec.entries * _PAIR_BYTES
+    scratch = torch.empty(at_rows + N * F * _ROW_BYTES, dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
+    vel_o, om_o, cf_o = torch.empty((3, N, F, 3), dtype=torch.float32, device=dev).unbind(0)
     pn = spec.plane_n
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.sw_solve(
         pos.data_ptr(), vel.data_ptr(), omega.data_ptr(), radius.data_ptr(),
         inv_m.data_ptr(), inv_i.data_ptr(), mu.data_ptr(), rest.data_ptr(),
-        allow.data_ptr(),
-        lam_n.data_ptr(), lam_t.data_ptr(), lam_g.data_ptr(), lamt_g.data_ptr(),
-        va.data_ptr(), wa.data_ptr(), vb.data_ptr(), wb.data_ptr(),
+        bits.data_ptr(), row_start.data_ptr(), spec.entries,
+        base, base + at_pairs, base + at_rows,
         vel_o.data_ptr(), om_o.data_ptr(), cf_o.data_ptr(),
         N, F, iters,
         h, contact_offset, slop, bounce_thresh,
@@ -353,5 +400,5 @@ def _cuda_solve(
     )
     if err != 0:
         raise RuntimeError(f"sphere_world kernel launch failed: CUDA error {err}")
-    _kernels.launches["sphere_world"] += iters
+    _kernels.launches["sphere_world"] += LAUNCHES_PER_SOLVE
     return vel_o, om_o, cf_o

@@ -5,8 +5,10 @@
 random batches, fed the same numpy inputs. Tolerance: 1e-5 of the largest
 magnitude of each output (float32, same formula, sums in another order).
 
-The Hopper kernel itself is compared with `_torch_solve` by the `cuda` test
-at the end, which runs only where a CUDA device is present.
+The Hopper kernel itself is compared with `_torch_solve`, on random worlds
+and on a dense one, and shown to repeat bitwise, by the `cuda` tests at the
+end, which run only where a CUDA device is present. The packing of its allow
+mask and its size limit are host code, tested here on the CPU.
 """
 import numpy as np
 import pytest
@@ -149,21 +151,136 @@ def test_cpu_solve_launches_no_kernel():
 
 def test_spec_to_cpu_keeps_no_device_mask():
     spec = _spec(tsw, 8)
-    assert spec.to("cpu") is spec and spec.allow_dev is None
+    assert spec.to("cpu") is spec
+    assert spec.allow_bits is None and spec.row_start is None and spec.entries == 0
+
+
+def _unpack(bits, F):
+    """(F, F) bool of pack_allow's words (bit l of word w = column 32 w + l)."""
+    b = np.ascontiguousarray(bits).view(np.uint8)
+    return np.unpackbits(b, axis=1, bitorder="little")[:, :F].astype(bool)
+
+
+@pytest.mark.parametrize("F", [1, 31, 32, 33, 96])
+def test_pack_allow_round_trips(F):
+    """The kernel's bit-packed mask unpacks to allow | allow^T, and row_start
+    counts each row's allowed pairs (random upper-triangular mask)."""
+    rng = np.random.RandomState(F)
+    allow = np.triu(rng.uniform(size=(F, F)) < 0.4, 1)
+    bits, row_start = tsw.pack_allow(allow)
+    assert bits.dtype == np.uint32 and bits.shape == (F, -(-F // 32))
+    sym = allow | allow.T
+    np.testing.assert_array_equal(_unpack(bits, F), sym)
+    # no bit past column F - 1
+    assert not np.unpackbits(bits.view(np.uint8), axis=1, bitorder="little")[:, F:].any()
+    assert row_start.dtype == np.int32 and row_start.shape == (F + 1,)
+    np.testing.assert_array_equal(np.diff(row_start), sym.sum(1))
+    assert row_start[0] == 0 and row_start[-1] == 2 * allow.sum()
+
+
+def test_kernel_refuses_more_spheres_than_its_limit():
+    """Above MAX_SPHERES the wrapper raises by name, before touching the spec
+    or the device."""
+    F = tsw.MAX_SPHERES + 1
+    z3, z1 = torch.zeros(1, F, 3), torch.zeros(1, F)
+    with pytest.raises(ValueError, match="MAX_SPHERES = 32768"):
+        tsw._cuda_solve(None, z3, z3, z3, z1, z1, z1, z1, z1,
+                        1 / 60, 9, 0.01, 0.0025, 0.2)
+
+
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _dense_args(F=1080):
+    """The dense world: F spheres of r = 0.2 uniform in a 1.6 m cube
+    (np.random.RandomState(7)): ~30,000 live pairs, up to 96 a sphere."""
+    rng = np.random.RandomState(7)
+    pos = rng.uniform(0.0, 1.6, (1, F, 3)).astype(np.float32)
+    vel = rng.uniform(-1, 1, (1, F, 3)).astype(np.float32)
+    omega = rng.uniform(-3, 3, (1, F, 3)).astype(np.float32)
+    r = np.full((1, F), 0.2, np.float32)
+    m = (4 / 3 * np.pi * r**3 * 500.0).astype(np.float32)
+    mu = rng.uniform(0.3, 1.0, (1, F)).astype(np.float32)
+    rest = rng.uniform(0.0, 0.8, (1, F)).astype(np.float32)
+    return (pos, vel, omega, r, (1.0 / m).astype(np.float32),
+            (1.0 / (0.4 * m * r * r)).astype(np.float32), mu, rest)
 
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_cuda():
     """Hopper kernel vs the plain version on the card: 1e-5 of the largest
     magnitude, for N=1 and N=2 random worlds with and without ground."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+    _needs_cuda()
     for N, ground in ((1, True), (2, True), (2, False)):
         args = [torch.as_tensor(x, device="cuda") for x in _random_args(3, N=N, F=96)]
         spec = _spec(tsw, 96, ground=ground)
         before = _kernels.launches["sphere_world"]
         got = tsw.solve(spec.to("cuda"), *args, 1 / 120, 8, 0.01, 0.0025, 0.2)
-        assert _kernels.launches["sphere_world"] == before + 8
+        assert _kernels.launches["sphere_world"] == before + tsw.LAUNCHES_PER_SOLVE
         want = tsw._torch_solve(spec, *args, 1 / 120, 8, 0.01, 0.0025, 0.2)
         torch.cuda.synchronize()
         _assert_close([w.cpu().numpy() for w in want], [g.cpu().numpy() for g in got])
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_dense_world():
+    """The dense world's live lists do not fit in shared memory, so the
+    kernel takes its device-memory path: still 1e-5 of the largest magnitude."""
+    _needs_cuda()
+    args = [torch.as_tensor(x, device="cuda") for x in _dense_args()]
+    spec = _spec(tsw, 1080)
+    got = tsw.solve(spec.to("cuda"), *args, 1 / 60, 9, 0.01, 0.0025, 0.2)
+    want = tsw._torch_solve(spec, *args, 1 / 60, 9, 0.01, 0.0025, 0.2)
+    torch.cuda.synchronize()
+    _assert_close([w.cpu().numpy() for w in want], [g.cpu().numpy() for g in got])
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_at_its_sphere_limit():
+    """MAX_SPHERES spheres in 2048 far-apart groups of 16, pairs allowed
+    within a group: the broadphase takes 16 tiles, each thread of the sweeps
+    owns several rows, and rows and lists spill to device memory. Each group
+    must match the plain version solving it alone (1e-5 of the largest
+    magnitude)."""
+    _needs_cuda()
+    G, K = 2048, 16
+    F = G * K
+    assert F == tsw.MAX_SPHERES
+    groups = _random_args(11, N=G, F=K)
+    pos = groups[0].copy()
+    pos[:, :, 0] += 5.0 * (np.arange(G) % 64)[:, None]
+    pos[:, :, 1] += 5.0 * (np.arange(G) // 64)[:, None]
+    allow = np.zeros((F, F), bool)
+    block = np.triu(np.ones((K, K), bool), 1)
+    for g in range(G):
+        allow[g * K:(g + 1) * K, g * K:(g + 1) * K] = block
+    world = [torch.as_tensor(x.reshape((1, F) + x.shape[2:]), device="cuda")
+             for x in (pos, *groups[1:])]
+    got = tsw.solve(_spec(tsw, F, allow=allow).to("cuda"), *world,
+                    1 / 60, 9, 0.01, 0.0025, 0.2)
+    want = tsw._torch_solve(_spec(tsw, K), *[torch.as_tensor(x, device="cuda")
+                                            for x in (pos, *groups[1:])],
+                            1 / 60, 9, 0.01, 0.0025, 0.2)
+    torch.cuda.synchronize()
+    _assert_close([w.cpu().numpy() for w in want],
+                  [g.reshape(G, K, 3).cpu().numpy() for g in got])
+    assert np.abs(want[2].cpu().numpy()).max() > 0  # the groups collide
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", ["random", "dense"])
+def test_kernel_is_bitwise_repeatable(world):
+    """Two solves of the same inputs give the same bits."""
+    _needs_cuda()
+    if world == "random":
+        F, args = 96, _random_args(3, N=2, F=96)
+    else:
+        F, args = 1080, _dense_args()
+    args = [torch.as_tensor(x, device="cuda") for x in args]
+    spec = _spec(tsw, F).to("cuda")
+    a = tsw.solve(spec, *args, 1 / 60, 9, 0.01, 0.0025, 0.2)
+    b = tsw.solve(spec, *args, 1 / 60, 9, 0.01, 0.0025, 0.2)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
