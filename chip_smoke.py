@@ -92,9 +92,12 @@ def random_solve_args(seed, N, F, device):
     return [torch.as_tensor(a, device=device) for a in arrays]
 
 
-def dense_solve_args(F, device):
-    """F spheres of r = 0.2 uniform in a 1.6 m cube (RandomState(7)): about
-    30x the live pairs of the pile, more than shared memory holds."""
+def dense_cube(F=1080):
+    """The dense world, as numpy (pos, vel, omega, radius, inv_m, inv_i, mu,
+    rest) of one world: F spheres of r = 0.2 uniform in a 1.6 m cube
+    (RandomState(7)). At F = 1080 it has 30,410 live pairs, up to 96 a
+    sphere: about 30x the pile, more than shared memory holds. The `cuda`
+    tests of tests/test_torch_sphere_world.py use it too."""
     rng = np.random.RandomState(7)
     pos = rng.uniform(0.0, 1.6, (1, F, 3)).astype(np.float32)
     vel = rng.uniform(-1, 1, (1, F, 3)).astype(np.float32)
@@ -103,9 +106,8 @@ def dense_solve_args(F, device):
     m = (4 / 3 * np.pi * r**3 * 500.0).astype(np.float32)
     mu = rng.uniform(0.3, 1.0, (1, F)).astype(np.float32)
     rest = rng.uniform(0.0, 0.8, (1, F)).astype(np.float32)
-    arrays = (pos, vel, omega, r, (1.0 / m).astype(np.float32),
-              (1.0 / (0.4 * m * r * r)).astype(np.float32), mu, rest)
-    return [torch.as_tensor(a, device=device) for a in arrays]
+    return (pos, vel, omega, r, (1.0 / m).astype(np.float32),
+            (1.0 / (0.4 * m * r * r)).astype(np.float32), mu, rest)
 
 
 def random_spec(sw, F, device):
@@ -161,8 +163,9 @@ def sphere_world_bound(args):
            + N * F * iters * OPS_BODY_SWEEP)
     n_in = sum(a.numel() for a in args[1:9])  # f32 inputs
     # + the allow mask's upper triangle (the lower half is zero by
-    # construction) as one byte a pair + 3 f32 outputs
-    nbytes = 4 * n_in + F * (F - 1) // 2 + 4 * 3 * (3 * N * F)
+    # construction) as one bit a pair, as the kernel reads it packed + 3 f32
+    # outputs
+    nbytes = 4 * n_in + -(-(F * (F - 1) // 2) // 8) + 4 * 3 * (3 * N * F)
     t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     log(f"sphere_world bound: {ops} operations ({t_ops:.6f} ms), {nbytes} bytes ({t_bytes:.6f} ms)")
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), active
@@ -284,7 +287,7 @@ def main() -> int:
     if not 1 <= per_solve <= 2:
         raise RuntimeError(f"sphere_world made {per_solve} launches in a solve, want 1 or 2")
     check_repeatable(sw, rargs, "random F=96 N=2")
-    dense = [random_spec(sw, 1080, dev), *dense_solve_args(1080, dev),
+    dense = [random_spec(sw, 1080, dev), *(torch.as_tensor(a, device=dev) for a in dense_cube()),
              1 / 60, 9, 0.01, 0.0025, 0.2]
     check_solve(sw, dense, "dense cube F=1080")
     check_repeatable(sw, dense, "dense cube F=1080")
@@ -303,11 +306,14 @@ def main() -> int:
     check_repeatable(sw, args, f"balls F={F}")
     bound_ms, bound_by, active = sphere_world_bound(args)
     kernel_ms = graph_ms(lambda: sw.solve(*args), reps=200)
-    log(f"  back-to-back calls (host launch overhead included): "
+    log(f"  back-to-back calls (host launch overhead included; the method of "
+        f"the ms before the kernel's redesign): "
         f"{time_ms(lambda: sw.solve(*args), reps=50):.4f} ms/solve")
     plain_ms = time_ms(lambda: sw._torch_solve(*args), reps=5, warmup=1)
     log(f"sphere_world F={F}: {active} active pairs, kernel {kernel_ms:.4f} ms/solve, "
         f"plain {plain_ms:.4f} ms/solve, bound {bound_ms:.6f} ms ({bound_by})")
+    log(f"  device scratch: {sw.scratch_layout(1, F, args[0].entries)[3]} bytes a world "
+        f"(two dense (F, F) f32 impulse matrices: {8 * F * F})")
     launch_shares(lambda: sw.solve(*args))
     # one sweep's cost: the slope of ms/solve over the number of sweeps
     t1, t17 = (graph_ms(lambda: sw.solve(*args[:10], n, *args[11:]), reps=200) for n in (1, 17))

@@ -40,13 +40,10 @@
 //      distant pairs), and __ballot_sync + __popc list the live neighbours
 //      of row i in ascending order, with no atomics; a row's two warps take
 //      the two halves of a tile's words and place their lists one after the
-//      other. For each live entry the warps then write, a lane an entry, the
-//      pair's static data once (canonical normal, target velocity tvn from
-//      the pre-solve velocities, k_n, k_t, mu mix, radii) and zero impulses:
-//      an 80-byte `Pair`. Row i's list sits in device memory at
-//      row_start[i], a CSR over the ALLOWED pairs, so the scratch holds the
-//      worst case (every allowed pair live) and no contact is dropped; its
-//      live count goes to row_cnt.
+//      other, a 2-byte neighbour index an entry (F <= 32768 < 2^16). Row i's
+//      list sits in device memory at row_start[i], a CSR over the ALLOWED
+//      pairs, so the scratch holds the worst case (every allowed pair live)
+//      and no contact is dropped; its live count goes to row_cnt.
 //   2. sw_sweeps, one thread-block cluster per world: C = min(8, ceil(F /
 //      128)) blocks of 512 threads, block r owning rows [r R, (r + 1) R),
 //      R = ceil(F / C). It is launched as a programmatic dependent of the
@@ -57,20 +54,25 @@
 //        (previous sweep, this sweep); another block's rows are read from
 //        distributed shared memory (cluster.map_shared_rank), and
 //        cluster.sync() is the Jacobi barrier between sweeps;
-//      * the block's live entries, lam_n and lam_t included, and its rows'
-//        per-sphere state (mass split, r, 1/m, 1/I, ground terms and
-//        impulses: a 56-byte `Row`) are copied into shared memory when they
-//        fit beside the velocities. A block decides on the data: if its
-//        entries (or rows) do not fit, its threads work on them in the
-//        device-memory scratch instead (the spill path). Both branches run
-//        one code path through generic pointers;
-//      * a sweep has two phases. First one thread per live ENTRY computes
-//        the pair's impulse update and stores its contribution (signed
-//        impulse, n x impulse) in the entry; a block barrier; then one
-//        thread per ROW sums its entries' contributions in ascending order
-//        of the neighbour, applies the mass split and the ground contact.
-//        So the chain of a sweep is one pair and one row long, however many
-//        contacts a sphere has.
+//      * its rows' per-sphere state (mass split, r, 1/m, 1/I, ground terms
+//        and impulses: a 56-byte `Row`) sits in shared memory when it fits
+//        beside the velocities, else in device memory;
+//      * where the block's live entries fit too (the pile), a thread an
+//        entry writes each entry's static data once into shared memory
+//        (canonical normal, target velocity tvn from the pre-solve
+//        velocities, k_n, k_t, mu mix, radii, impulses: an 80-byte `Pair`).
+//        A sweep is then two phases: one thread per live ENTRY computes the
+//        pair's impulse update and stores its contribution (signed impulse,
+//        n x impulse) in the entry; a block barrier; one thread per ROW sums
+//        its entries' contributions in ascending order of the neighbour and
+//        applies the mass split and the ground contact. The chain of a sweep
+//        is one pair and one row long, however many contacts a sphere has;
+//      * where they do not fit (the spill path, decided by each block on the
+//        data), one thread per ROW walks its list in ascending order in each
+//        sweep, recomputes each entry's static data from the inputs, and
+//        keeps only the entry's lam_n, lam_t in device memory, at the
+//        entry's place in the CSR. So the worst-case scratch is 10 bytes an
+//        allowed ordered pair (index and two impulses), not a full Pair.
 //   Every pair is evaluated by both of its rows' entries in canonical order
 //   (a = the lower index), from the same inputs, so both get bitwise the
 //   same impulse and each keeps its own copy of the pair's lam. No float
@@ -148,7 +150,7 @@ static_assert(sizeof(Pair) == 80, "Pair is five 16-byte words");
 
 // per-sphere state of the sweeps that only the owning thread reads
 struct Row {
-  Pair* list;  // live entries: shared memory, or the device-memory scratch
+  Pair* list;  // live entries in shared memory (unused on the spill path)
   int n, act_g;
   float s, r, im, ii;          // 1 / contact count, radius, 1/m, 1/I
   float tvn_g, kng, ktg, mug;  // ground contact terms
@@ -218,10 +220,56 @@ __device__ Pair make_pair(const World& W, const Scalars& S, int i, int j,
   return p;
 }
 
+__device__ __forceinline__ float4 sphere(const World& W, int i) {
+  return make_float4(W.pos[3 * i], W.pos[3 * i + 1], W.pos[3 * i + 2], W.radius[i]);
+}
+
+// one sweep's update of pair q seen from row q.i, whose v, w are mv and j's
+// are ov: the accumulated impulses lam, lamt in place, and the contribution
+// to row i (signed impulse, n x impulse) in c
+__device__ __forceinline__ void pair_update(const Pair& q, const float* mv, const float* ov,
+                                            float& lam, float& lamt, float c[6]) {
+  const bool lower = q.i < q.j;  // row i is side a of the pair
+  const float mvx = mv[0], mvy = mv[1], mvz = mv[2];
+  const float mwx = mv[3], mwy = mv[4], mwz = mv[5];
+  const float ovx = ov[0], ovy = ov[1], ovz = ov[2];
+  const float owx = ov[3], owy = ov[4], owz = ov[5];
+  const float vax = lower ? mvx : ovx, vay = lower ? mvy : ovy, vaz = lower ? mvz : ovz;
+  const float vbx = lower ? ovx : mvx, vby = lower ? ovy : mvy, vbz = lower ? ovz : mvz;
+  const float wax = lower ? mwx : owx, way = lower ? mwy : owy, waz = lower ? mwz : owz;
+  const float wbx = lower ? owx : mwx, wby = lower ? owy : mwy, wbz = lower ? owz : mwz;
+  float rx, ry, rz;
+  relvel(vax, vay, vaz, vbx, vby, vbz,
+         q.ra * wax + q.rb * wbx, q.ra * way + q.rb * wby, q.ra * waz + q.rb * wbz,
+         q.nx, q.ny, q.nz, rx, ry, rz);
+  const float vn = rx * q.nx + ry * q.ny + rz * q.nz;
+  const float new_lam = fmaxf(lam + kRelax * q.kn * (q.tvn - vn), 0.f);
+  const float dlam = new_lam - lam;
+  const float vtx = rx - vn * q.nx, vty = ry - vn * q.ny, vtz = rz - vn * q.nz;
+  const float vtn = fmaxf(sqrtf(vtx * vtx + vty * vty + vtz * vtz), 1e-9f);
+  const float tx = vtx / vtn, ty = vty / vtn, tz = vtz / vtn;
+  const float new_lamt = fminf(lamt + kRelax * q.kt * vtn, q.mu * new_lam);
+  const float dlamt = new_lamt - lamt;
+  // impulse on a (b gets its negative); torque term n x imp is the same for
+  // both sides: tau = -r (n x imp) on a and on b
+  const float ix = dlam * q.nx - dlamt * tx;
+  const float iy = dlam * q.ny - dlamt * ty;
+  const float iz = dlam * q.nz - dlamt * tz;
+  const float sgn = lower ? 1.f : -1.f;
+  lam = new_lam;
+  lamt = new_lamt;
+  c[0] = sgn * ix;
+  c[1] = sgn * iy;
+  c[2] = sgn * iz;
+  c[3] = q.ny * iz - q.nz * iy;
+  c[4] = q.nz * ix - q.nx * iz;
+  c[5] = q.nx * iy - q.ny * ix;
+}
+
 __global__ void __launch_bounds__(kBroadThreads)
 sw_broadphase(World W, const uint32_t* __restrict__ bits,
               const int* __restrict__ row_start, int* __restrict__ row_cnt,
-              Pair* __restrict__ pairs, long long E, Scalars S, int R) {
+              uint16_t* __restrict__ nbs, long long E, Scalars S) {
   extern __shared__ __align__(16) unsigned char bsmem[];
   __shared__ int part_cnt[kBroadRows][kRowWarps];
   float4* const tile = reinterpret_cast<float4*>(bsmem);
@@ -234,11 +282,9 @@ sw_broadphase(World W, const uint32_t* __restrict__ bits,
   const bool has_row = i < F;  // per warp: the whole warp agrees
   const size_t w0 = (size_t)blockIdx.y * F;
   W.offset(w0);
-  Pair* out = pairs + (size_t)blockIdx.y * E + (has_row ? row_start[i] : 0);
+  uint16_t* out = nbs + (size_t)blockIdx.y * E + (has_row ? row_start[i] : 0);
   const uint32_t* mrow = bits + (size_t)(has_row ? i : 0) * words;
-  const float4 me = has_row
-      ? make_float4(W.pos[3 * i], W.pos[3 * i + 1], W.pos[3 * i + 2], W.radius[i])
-      : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 me = has_row ? sphere(W, i) : make_float4(0.f, 0.f, 0.f, 0.f);
   // let the sweeps kernel start its input-only set-up now (it waits for
   // this grid's results before it reads them)
   asm volatile("griddepcontrol.launch_dependents;");
@@ -246,10 +292,7 @@ sw_broadphase(World W, const uint32_t* __restrict__ bits,
   for (int t0 = 0; t0 < F; t0 += kTile) {
     const int tn = min(kTile, F - t0);
     __syncthreads();
-    for (int k = threadIdx.x; k < tn; k += kBroadThreads) {
-      const int j = t0 + k;
-      tile[k] = make_float4(W.pos[3 * j], W.pos[3 * j + 1], W.pos[3 * j + 2], W.radius[j]);
-    }
+    for (int k = threadIdx.x; k < tn; k += kBroadThreads) tile[k] = sphere(W, t0 + k);
     __syncthreads();
     // the row's kRowWarps warps split the tile's mask words in order; each
     // lists its live neighbours, ascending, in its buffer
@@ -283,8 +326,7 @@ sw_broadphase(World W, const uint32_t* __restrict__ bits,
     }
     if (lane == 0) part_cnt[rl][part] = nbuf;
     __syncthreads();
-    // write the entries after those of the row's earlier warps, one lane
-    // each: their loads of the pairs' data overlap
+    // write the entries after those of the row's earlier warps
     if (has_row) {
       int before = 0, all = 0;
       for (int p = 0; p < kRowWarps; ++p) {
@@ -292,10 +334,7 @@ sw_broadphase(World W, const uint32_t* __restrict__ bits,
         before += p < part ? c : 0;
         all += c;
       }
-      for (int l = lane; l < nbuf; l += kWarp) {
-        const int j = buf[l];
-        out[cnt + before + l] = make_pair(W, S, i, j, me, tile[j - t0], R);
-      }
+      for (int l = lane; l < nbuf; l += kWarp) out[cnt + before + l] = (uint16_t)buf[l];
       cnt += all;
     }
   }
@@ -333,9 +372,11 @@ __device__ __forceinline__ int entry_row(const int* off, int nr, int e) {
   return lo;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// one block an SM (its shared memory allows no second): the registers of two
+// are not kept free
+__global__ void __launch_bounds__(kThreads, 1)
 sw_sweeps(World W, const int* __restrict__ row_start, const int* __restrict__ row_cnt,
-          Pair* pairs, long long E, Row* grows,
+          const uint16_t* __restrict__ nbs, float2* __restrict__ lams, long long E, Row* grows,
           float* __restrict__ v_out, float* __restrict__ w_out,
           float* __restrict__ cf_out, Scalars S, int iters, int R, int smem_bytes) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -361,7 +402,8 @@ sw_sweeps(World W, const int* __restrict__ row_start, const int* __restrict__ ro
   Row* rows = rows_fit ? reinterpret_cast<Row*>(smem + rows_at) : grows + w0 + r0;
   const int pairs_at = align16(rows_at + (rows_fit ? rows_bytes : 0));
   Pair* const spairs = reinterpret_cast<Pair*>(smem + pairs_at);
-  Pair* const gpairs = pairs + (size_t)blockIdx.y * E;
+  const uint16_t* const gnb = nbs + (size_t)blockIdx.y * E;
+  float2* const glam = lams + (size_t)blockIdx.y * E;
 
   // set-up from the inputs alone, while the broadphase may still run
   for (int k = k0; k < k1; ++k) {
@@ -406,24 +448,22 @@ sw_sweeps(World W, const int* __restrict__ row_start, const int* __restrict__ ro
   const bool pairs_fit = (long long)pairs_at + (long long)total * (long long)sizeof(Pair) <= smem_bytes;
   for (int k = k0; k < k1; ++k) {
     const int n = row_cnt[w0 + r0 + k];
+    const int start = row_start[r0 + k];
     off[k] = o;
     rows[k].n = n;
     rows[k].s = 1.f / fmaxf((float)(n + rows[k].act_g), 1.f);
-    rows[k].list = pairs_fit ? spairs + o : gpairs + row_start[r0 + k];
+    rows[k].list = spairs + o;
+    if (!pairs_fit)
+      for (int p = 0; p < n; ++p) glam[start + p] = make_float2(0.f, 0.f);
     o += n;
   }
   __syncthreads();  // off[] complete
-  // entry e of the block: in shared memory, or in its row's list in the
-  // device-memory scratch
-  auto entry = [&](int e) -> Pair* {
-    if (pairs_fit) return spairs + e;
-    const int k = entry_row(off, nr, e);
-    return gpairs + row_start[r0 + k] + (e - off[k]);
-  };
   if (pairs_fit) {
+    // each entry's static data, once, a thread an entry
     for (int e = threadIdx.x; e < total; e += kThreads) {
       const int k = entry_row(off, nr, e);
-      spairs[e] = gpairs[row_start[r0 + k] + (e - off[k])];
+      const int i = r0 + k, j = gnb[row_start[i] + (e - off[k])];
+      spairs[e] = make_pair(W, S, i, j, sphere(W, i), sphere(W, j), R);
     }
   }
   cluster.sync();
@@ -433,66 +473,71 @@ sw_sweeps(World W, const int* __restrict__ row_start, const int* __restrict__ ro
     float* cur = vw + (it & 1) * R * 6;
     float* nxt = vw + ((it & 1) ^ 1) * R * 6;
     const bool last = it == iters - 1;
-    // phase 1: one thread per live entry (i, j)
-    for (int e = threadIdx.x; e < total; e += kThreads) {
-      Pair* qp = entry(e);
+    // phase 1 (entries in shared memory): one thread per live entry (i, j)
+    for (int e = threadIdx.x; e < (pairs_fit ? total : 0); e += kThreads) {
+      Pair* qp = spairs + e;
       const Pair q = *qp;
-      const float* mv = cur + 6 * (q.i - r0);
       const float* ov = cluster.map_shared_rank(cur + (q.slot & 0xffff), (unsigned)q.slot >> 16);
-      const bool lower = q.i < q.j;  // row i is side a of the pair
-      const float mvx = mv[0], mvy = mv[1], mvz = mv[2];
-      const float mwx = mv[3], mwy = mv[4], mwz = mv[5];
-      const float ovx = ov[0], ovy = ov[1], ovz = ov[2];
-      const float owx = ov[3], owy = ov[4], owz = ov[5];
-      const float vax = lower ? mvx : ovx, vay = lower ? mvy : ovy, vaz = lower ? mvz : ovz;
-      const float vbx = lower ? ovx : mvx, vby = lower ? ovy : mvy, vbz = lower ? ovz : mvz;
-      const float wax = lower ? mwx : owx, way = lower ? mwy : owy, waz = lower ? mwz : owz;
-      const float wbx = lower ? owx : mwx, wby = lower ? owy : mwy, wbz = lower ? owz : mwz;
-      float rx, ry, rz;
-      relvel(vax, vay, vaz, vbx, vby, vbz,
-             q.ra * wax + q.rb * wbx, q.ra * way + q.rb * wby, q.ra * waz + q.rb * wbz,
-             q.nx, q.ny, q.nz, rx, ry, rz);
-      const float vn = rx * q.nx + ry * q.ny + rz * q.nz;
-      const float new_lam = fmaxf(q.lam + kRelax * q.kn * (q.tvn - vn), 0.f);
-      const float dlam = new_lam - q.lam;
-      const float vtx = rx - vn * q.nx, vty = ry - vn * q.ny, vtz = rz - vn * q.nz;
-      const float vtn = fmaxf(sqrtf(vtx * vtx + vty * vty + vtz * vtz), 1e-9f);
-      const float tx = vtx / vtn, ty = vty / vtn, tz = vtz / vtn;
-      const float new_lamt = fminf(q.lamt + kRelax * q.kt * vtn, q.mu * new_lam);
-      const float dlamt = new_lamt - q.lamt;
-      // impulse on a (b gets its negative); torque term n x imp is the
-      // same for both sides: tau = -r (n x imp) on a and on b
-      const float ix = dlam * q.nx - dlamt * tx;
-      const float iy = dlam * q.ny - dlamt * ty;
-      const float iz = dlam * q.nz - dlamt * tz;
-      const float sgn = lower ? 1.f : -1.f;
-      qp->lam = new_lam;
-      qp->lamt = new_lamt;
-      qp->c[0] = sgn * ix;
-      qp->c[1] = sgn * iy;
-      qp->c[2] = sgn * iz;
-      qp->c[3] = q.ny * iz - q.nz * iy;
-      qp->c[4] = q.nz * ix - q.nx * iz;
-      qp->c[5] = q.nx * iy - q.ny * ix;
+      float lam = q.lam, lamt = q.lamt;
+      pair_update(q, cur + 6 * (q.i - r0), ov, lam, lamt, qp->c);
+      qp->lam = lam;
+      qp->lamt = lamt;
     }
     __syncthreads();
     // phase 2: one thread per row: its entries in ascending j, then ground
     for (int k = k0; k < k1; ++k) {
       const int i = r0 + k;
       Row rw = rows[k];
+      const float* mv = cur + 6 * k;
       float six = 0.f, siy = 0.f, siz = 0.f;
       float sqx = 0.f, sqy = 0.f, sqz = 0.f;
+      float scx = 0.f, scy = 0.f, scz = 0.f;  // normal force, last sweep
+      if (pairs_fit) {
 #pragma unroll 4
-      for (int p = 0; p < rw.n; ++p) {
-        const float* c = rw.list[p].c;
-        six += c[0];
-        siy += c[1];
-        siz += c[2];
-        sqx += c[3];
-        sqy += c[4];
-        sqz += c[5];
+        for (int p = 0; p < rw.n; ++p) {
+          const float* c = rw.list[p].c;
+          six += c[0];
+          siy += c[1];
+          siz += c[2];
+          sqx += c[3];
+          sqy += c[4];
+          sqz += c[5];
+        }
+        if (last) {
+          for (int p = 0; p < rw.n; ++p) {
+            const Pair& q = rw.list[p];
+            const float sl = (i < q.j ? 1.f : -1.f) * q.lam;
+            scx += sl * q.nx;
+            scy += sl * q.ny;
+            scz += sl * q.nz;
+          }
+        }
+      } else {
+        // spill path: the row's entries one after the other, their static
+        // data recomputed, their impulses in device memory
+        const uint16_t* nb = gnb + row_start[i];
+        float2* lm = glam + row_start[i];
+        const float4 me = sphere(W, i);
+        for (int p = 0; p < rw.n; ++p) {
+          const int j = nb[p];
+          const Pair q = make_pair(W, S, i, j, me, sphere(W, j), R);
+          const float* ov = cluster.map_shared_rank(cur + (q.slot & 0xffff), (unsigned)q.slot >> 16);
+          float2 l = lm[p];
+          float c[6];
+          pair_update(q, mv, ov, l.x, l.y, c);
+          lm[p] = l;
+          six += c[0];
+          siy += c[1];
+          siz += c[2];
+          sqx += c[3];
+          sqy += c[4];
+          sqz += c[5];
+          const float sl = (i < j ? 1.f : -1.f) * l.x;
+          scx += sl * q.nx;
+          scy += sl * q.ny;
+          scz += sl * q.nz;
+        }
       }
-      const float* mv = cur + 6 * k;
       const float sv = rw.im * rw.s, sw = -rw.r * rw.ii * rw.s;
       float vx = mv[0] + six * sv, vy = mv[1] + siy * sv, vz = mv[2] + siz * sv;
       float wx = mv[3] + sqx * sw, wy = mv[4] + sqy * sw, wz = mv[5] + sqz * sw;
@@ -526,14 +571,6 @@ sw_sweeps(World W, const int* __restrict__ row_start, const int* __restrict__ ro
       }
       if (last) {
         // net normal contact force: both sides' normal impulses + ground
-        float scx = 0.f, scy = 0.f, scz = 0.f;
-        for (int p = 0; p < rw.n; ++p) {
-          const Pair& q = rw.list[p];
-          const float sl = (i < q.j ? 1.f : -1.f) * q.lam;
-          scx += sl * q.nx;
-          scy += sl * q.ny;
-          scz += sl * q.nz;
-        }
         const size_t o3 = 3 * (w0 + i);
         v_out[o3] = vx;
         v_out[o3 + 1] = vy;
@@ -570,14 +607,15 @@ extern "C" int sw_max_spheres() { return kMaxF; }
 // f32 (N, F, 3) or (N, F); allow_bits (F, ceil(F / 32)) uint32 of the
 // symmetric mask; row_start (F + 1) int32, the CSR offsets of each row's
 // allowed pairs, n_entries = row_start[F]. Scratch, 16-byte aligned: row_cnt
-// (N, F) int32, pairs N * n_entries * 80 bytes, rows N * F * 56 bytes.
+// (N, F) int32, rows N * F * 56 bytes, lams (N, n_entries) float2, nbs
+// (N, n_entries) uint16: 10 bytes an allowed ordered pair, 60 a sphere.
 // Returns the first non-zero CUDA error of the launches, else 0.
 extern "C" int sw_solve(
     const float* pos, const float* vel, const float* omega,
     const float* radius, const float* inv_m, const float* inv_i,
     const float* mu, const float* rest,
     const uint32_t* allow_bits, const int* row_start, long long n_entries,
-    int* row_cnt, void* pairs, void* rows,
+    int* row_cnt, void* rows, void* lams, void* nbs,
     float* vel_out, float* omega_out, float* cf_out,
     int N, int F, int iters,
     float h, float contact_offset, float slop, float bounce_thresh,
@@ -589,7 +627,7 @@ extern "C" int sw_solve(
   Scalars S{F, 1.f / h, contact_offset, slop, bounce_thresh,
             pnx, pny, pnz, pd, pf, pr, has_ground};
   World W{pos, vel, omega, radius, inv_m, inv_i, mu, rest};
-  Pair* P = static_cast<Pair*>(pairs);
+  uint16_t* NB = static_cast<uint16_t*>(nbs);
 
   // the dynamic shared memory a sweeps block may take on this device: the
   // opt-in maximum less the kernel's static shared memory (232,416 bytes on
@@ -621,7 +659,7 @@ extern "C" int sw_solve(
   const int smem = (int)(want < smem_max[dev] ? want : smem_max[dev]);
 
   sw_broadphase<<<dim3((F + kBroadRows - 1) / kBroadRows, N), kBroadThreads, kBroadSmem, st>>>(
-      W, allow_bits, row_start, row_cnt, P, n_entries, S, R);
+      W, allow_bits, row_start, row_cnt, NB, n_entries, S);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
@@ -640,7 +678,8 @@ extern "C" int sw_solve(
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 2;
-  e = cudaLaunchKernelEx(&cfg, sw_sweeps, W, row_start, (const int*)row_cnt, P, n_entries,
+  e = cudaLaunchKernelEx(&cfg, sw_sweeps, W, row_start, (const int*)row_cnt,
+                         (const uint16_t*)NB, static_cast<float2*>(lams), n_entries,
                          static_cast<Row*>(rows), vel_out, omega_out, cf_out, S, iters, R, smem);
   if (e == cudaSuccess) e = cudaGetLastError();
   return (int)e;

@@ -37,7 +37,8 @@ from . import _kernels
 MIN_SPHERES = 64
 # spheres a world may hold on CUDA tensors: the kernel keeps the velocities
 # of a world in the shared memory of one 8-block cluster (kMaxF in
-# csrc/sphere_world.cu)
+# csrc/sphere_world.cu). Its device-memory scratch grows with the allowed
+# pairs (`scratch_layout`) and must fit in the card's memory too.
 MAX_SPHERES = 32768
 # launches of the kernel per solve: the broadphase, then all the sweeps
 LAUNCHES_PER_SOLVE = 2
@@ -323,12 +324,28 @@ _I = ctypes.c_int
 _ARGTYPES = (
     [_P] * 10  # pos vel omega radius inv_m inv_i mu rest allow_bits row_start
     + [ctypes.c_longlong]  # entries
-    + [_P] * 6  # row_cnt pairs rows vel_out omega_out cf_out
+    + [_P] * 7  # row_cnt rows lams nbs vel_out omega_out cf_out
     + [_I, _I, _I]  # N F iters
     + [_F] * 10  # h contact_offset slop bounce pnx pny pnz pd pf pr
     + [_I, _P]  # has_ground stream
 )
-_PAIR_BYTES, _ROW_BYTES = 80, 56  # sizeof(Pair), sizeof(Row) in the kernel
+_ROW_BYTES = 56  # sizeof(Row) in the kernel
+
+
+def scratch_layout(N: int, F: int, entries: int):
+    """Byte offsets of the kernel's device-memory scratch, 16-byte aligned:
+    (rows, lams, nbs, total). row_cnt (N, F) int32 comes first, then rows
+    (N, F) 56-byte `Row`s, lams (N, entries) f32 pairs (lam_n, lam_t), nbs
+    (N, entries) uint16 neighbour indices. `entries` counts every allowed
+    ordered pair, so no contact is dropped: 10 bytes an allowed pair a
+    world."""
+    def up(x):
+        return -(-x // 16) * 16
+
+    at_rows = up(N * F * 4)
+    at_lams = up(at_rows + N * F * _ROW_BYTES)
+    at_nbs = at_lams + N * entries * 8
+    return at_rows, at_lams, at_nbs, up(at_nbs + N * entries * 2)
 
 
 def _library():
@@ -376,12 +393,16 @@ def _cuda_solve(
             "sphere_world kernel: the spec has no packed allow mask for "
             f"F = {F} on {dev}; pass spec.to(device), made once and kept"
         )
+    at_rows, at_lams, at_nbs, nbytes = scratch_layout(N, F, spec.entries)
+    card = torch.cuda.get_device_properties(dev).total_memory
+    if nbytes > card:
+        raise ValueError(
+            f"sphere_world kernel: {N} worlds of {spec.entries} allowed ordered "
+            f"pairs need {nbytes} bytes of scratch, more than the {card} of {dev}"
+        )
     lib = _library()
-    # one scratch allocation: row_cnt, then the pairs at the worst case (every
-    # allowed pair live: no contact is dropped), then the rows
-    at_pairs = -(-N * F * 4 // 16) * 16
-    at_rows = at_pairs + N * spec.entries * _PAIR_BYTES
-    scratch = torch.empty(at_rows + N * F * _ROW_BYTES, dtype=torch.uint8, device=dev)
+    # one scratch allocation at the worst case (every allowed pair live)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     base = scratch.data_ptr()
     vel_o, om_o, cf_o = torch.empty((3, N, F, 3), dtype=torch.float32, device=dev).unbind(0)
     pn = spec.plane_n
@@ -390,7 +411,7 @@ def _cuda_solve(
         pos.data_ptr(), vel.data_ptr(), omega.data_ptr(), radius.data_ptr(),
         inv_m.data_ptr(), inv_i.data_ptr(), mu.data_ptr(), rest.data_ptr(),
         bits.data_ptr(), row_start.data_ptr(), spec.entries,
-        base, base + at_pairs, base + at_rows,
+        base, base + at_rows, base + at_lams, base + at_nbs,
         vel_o.data_ptr(), om_o.data_ptr(), cf_o.data_ptr(),
         N, F, iters,
         h, contact_offset, slop, bounce_thresh,

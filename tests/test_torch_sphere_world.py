@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import dense_cube
 from test_isaacgym_tpu.ops import sphere_world as jsw
 from test_isaacgym_tpu_torch.ops import _kernels
 from test_isaacgym_tpu_torch.ops import sphere_world as tsw
@@ -188,24 +189,33 @@ def test_kernel_refuses_more_spheres_than_its_limit():
                         1 / 60, 9, 0.01, 0.0025, 0.2)
 
 
+@pytest.mark.parametrize("N,F", [(1, 1), (1, 96), (2, 1080)])
+def test_scratch_layout_holds_every_allowed_pair(N, F):
+    """The kernel's scratch: aligned parts, none overlapping, 10 bytes an
+    allowed ordered pair. With every pair allowed it stays within 1.3x of the
+    two dense (N, F, F) f32 impulse matrices it replaced."""
+    entries = F * (F - 1)
+    at_rows, at_lams, at_nbs, total = tsw.scratch_layout(N, F, entries)
+    assert at_rows >= 4 * N * F and at_lams >= at_rows + 56 * N * F
+    assert at_nbs == at_lams + 8 * N * entries and total >= at_nbs + 2 * N * entries
+    assert all(x % 16 == 0 for x in (at_rows, at_lams, at_nbs, total))
+    assert total - 60 * N * F <= 10 * N * entries + 48
+    assert total <= 1.3 * 8 * N * F * F + 60 * N * F + 48
+
+
+def test_dense_cube_is_dense():
+    """The dense world of chip_smoke.py and the `cuda` tests: its live pairs
+    (numpy count) are ~30x the pile's and up to 96 a sphere."""
+    pos, _, _, r = dense_cube()[:4]
+    d = np.linalg.norm(pos[0, :, None] - pos[0, None], axis=-1)
+    live = np.triu(r[0, :, None] + r[0, None] - d > -0.01, 1)
+    assert int(live.sum()) == 30410
+    assert int((live | live.T).sum(1).max()) == 96
+
+
 def _needs_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-
-
-def _dense_args(F=1080):
-    """The dense world: F spheres of r = 0.2 uniform in a 1.6 m cube
-    (np.random.RandomState(7)): ~30,000 live pairs, up to 96 a sphere."""
-    rng = np.random.RandomState(7)
-    pos = rng.uniform(0.0, 1.6, (1, F, 3)).astype(np.float32)
-    vel = rng.uniform(-1, 1, (1, F, 3)).astype(np.float32)
-    omega = rng.uniform(-3, 3, (1, F, 3)).astype(np.float32)
-    r = np.full((1, F), 0.2, np.float32)
-    m = (4 / 3 * np.pi * r**3 * 500.0).astype(np.float32)
-    mu = rng.uniform(0.3, 1.0, (1, F)).astype(np.float32)
-    rest = rng.uniform(0.0, 0.8, (1, F)).astype(np.float32)
-    return (pos, vel, omega, r, (1.0 / m).astype(np.float32),
-            (1.0 / (0.4 * m * r * r)).astype(np.float32), mu, rest)
 
 
 @pytest.mark.cuda
@@ -229,7 +239,7 @@ def test_kernel_matches_plain_on_dense_world():
     """The dense world's live lists do not fit in shared memory, so the
     kernel takes its device-memory path: still 1e-5 of the largest magnitude."""
     _needs_cuda()
-    args = [torch.as_tensor(x, device="cuda") for x in _dense_args()]
+    args = [torch.as_tensor(x, device="cuda") for x in dense_cube()]
     spec = _spec(tsw, 1080)
     got = tsw.solve(spec.to("cuda"), *args, 1 / 60, 9, 0.01, 0.0025, 0.2)
     want = tsw._torch_solve(spec, *args, 1 / 60, 9, 0.01, 0.0025, 0.2)
@@ -277,10 +287,26 @@ def test_kernel_is_bitwise_repeatable(world):
     if world == "random":
         F, args = 96, _random_args(3, N=2, F=96)
     else:
-        F, args = 1080, _dense_args()
+        F, args = 1080, dense_cube()
     args = [torch.as_tensor(x, device="cuda") for x in args]
     spec = _spec(tsw, F).to("cuda")
     a = tsw.solve(spec, *args, 1 / 60, 9, 0.01, 0.0025, 0.2)
     b = tsw.solve(spec, *args, 1 / 60, 9, 0.01, 0.0025, 0.2)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_scratch_larger_than_the_card():
+    """A spec whose allowed pairs need more scratch than the card holds
+    raises by name before anything is allocated or launched."""
+    _needs_cuda()
+    F = 96
+    args = [torch.as_tensor(x, device="cuda") for x in _random_args(3, N=1, F=F)]
+    spec = _spec(tsw, F).to("cuda")
+    card = torch.cuda.get_device_properties(0).total_memory
+    huge = spec._replace(entries=card // 10 + 1)
+    before = _kernels.launches["sphere_world"]
+    with pytest.raises(ValueError, match="bytes of scratch"):
+        tsw.solve(huge, *args, 1 / 60, 9, 0.01, 0.0025, 0.2)
+    assert _kernels.launches["sphere_world"] == before
