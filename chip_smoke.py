@@ -10,11 +10,16 @@ spill out of shared memory), shows that two solves of the same inputs give
 the same bits, drives the 1080-ball sphere world (envs/balls.py, 36
 pyramids) through its entry points with the kernels' launch counts read
 around that run alone, profiles 20 of its steps, runs the 120-ball drop
-against tests/goldens/balls_drop.npz, and prints:
+against tests/goldens/balls_drop.npz, then drives the flagship Franka OSC
+path (envs/franka.py, 4096 envs of the mesh-free Panda stand-in, plain
+PyTorch ops and no hand-written kernel: its counts are read around its own
+run and must stay 0), profiles 10 of its steps, checks an 8-env run against
+the stand-in golden, and prints:
   * the card's name and power limit (nvidia-smi);
   * per-phase numbers (build seconds, kernel and plain times, each launch's
-    share of a solve and one sweep's cost, ball-steps/s, device busy share
-    and the kernels that take the most device time). A kernel's time is its
+    share of a solve and one sweep's cost, ball-steps/s, Franka env-steps/s
+    and ms/step, device busy share, device launches per step and the
+    kernels that take the most device time). A kernel's time is its
     device time per call, replayed from a CUDA graph; the same calls made
     back to back from Python are also shown, host overhead included;
   * one JSON line {"kernels": [...]} with each kernel's launches on the
@@ -52,7 +57,19 @@ SOLVE_TOL = 1e-5  # kernel vs plain, of the largest magnitude
 STEPS = 400  # end-to-end 1080-ball run
 PILE_STEPS = 120  # steps before capturing the piled F=1080 solve inputs
 PROFILE_STEPS = 20  # main-path steps under torch.profiler
-GOLDEN_TOL = 1e-4  # 120-ball drop on the card vs tests/goldens/balls_drop.npz (its own rule)
+# the goldens' rule on the card: the 120-ball drop vs tests/goldens/balls_drop.npz
+# and the Franka stand-in vs its franka_osc_standin.npz
+GOLDEN_TOL = 1e-4
+FRANKA_ENVS = 4096  # the flagship's width (bench.py, BASELINE.json)
+FRANKA_STEPS = 200  # timed Franka run
+FRANKA_PROFILE_STEPS = 10
+FRANKA_GOLDEN_ENVS, FRANKA_GOLDEN_EVERY = 8, 10  # franka_osc_standin.npz: steps 0, 10, ..., 50
+# Median distance of the hand from its circle target after FRANKA_STEPS
+# steps. The JAX env gives 0.045785 m on the CPU (every env tracks the same
+# circle from the same pose; printed by tests/test_torch_franka.py run as a
+# script); the card holds the golden to 1e-4, so 0.05 m leaves room for
+# rounding and fails a controller or a step that has gone wrong.
+FRANKA_TRACK_BOUND = 0.05
 
 
 def log(*a):
@@ -219,12 +236,12 @@ def launch_shares(solve, reps=20):
         log(f"  launch {name}: {us:.2f} us/solve, {100 * us / total:.1f}% of the solve")
 
 
-def profile_steps(run_steps, state, step_ms):
-    """Where a step's time goes: torch.profiler over PROFILE_STEPS steps of
-    the main path. Prints device busy time per step (device-side events
-    only: kernels, copies, sets), its share of the unprofiled step time
-    `step_ms`, device launches per step and the kernels that take the most
-    device time."""
+def profile_steps(run_steps, state, step_ms, steps=PROFILE_STEPS):
+    """Where a step's time goes: torch.profiler over `steps` steps of a
+    path (`run_steps` runs that many). Prints device busy time per step
+    (device-side events only: kernels, copies, sets), its share of the
+    unprofiled step time `step_ms`, device launches per step and the kernels
+    that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -239,17 +256,123 @@ def profile_steps(run_steps, state, step_ms):
         key=lambda d: -d[2],
     )
     if not dev:
-        log(f"profile {PROFILE_STEPS} steps: device time not measured (no device events)")
+        log(f"profile {steps} steps: device time not measured (no device events)")
         return
-    busy_us = sum(d[2] for d in dev) / PROFILE_STEPS
-    log(f"profile {PROFILE_STEPS} steps: device busy {busy_us:.1f} us/step, "
+    busy_us = sum(d[2] for d in dev) / steps
+    log(f"profile {steps} steps: device busy {busy_us:.1f} us/step, "
         f"{100 * busy_us / (step_ms * 1e3):.1f}% of the {step_ms:.4f} ms step; "
-        f"{sum(d[1] for d in dev) / PROFILE_STEPS:.1f} device launches/step")
+        f"{sum(d[1] for d in dev) / steps:.1f} device launches/step")
     for key, count, us in dev[:6]:
-        log(f"  {us / PROFILE_STEPS:8.1f} us/step {count / PROFILE_STEPS:5.1f}x/step  {key[:90]}")
+        log(f"  {us / steps:8.1f} us/step {count / steps:5.1f}x/step  {key[:90]}")
     sw = [d for d in dev if "sw_broadphase" in d[0] or "sw_sweeps" in d[0]]
-    log(f"  sphere_world kernels: {sum(d[2] for d in sw) / PROFILE_STEPS:.1f} us/step, "
-        f"{sum(d[1] for d in sw) / PROFILE_STEPS:.1f} launches/step")
+    log(f"  sphere_world kernels: {sum(d[2] for d in sw) / steps:.1f} us/step, "
+        f"{sum(d[1] for d in sw) / steps:.1f} launches/step")
+
+
+def count_ops(fn) -> int:
+    """PyTorch operators that fn() dispatches, views left out: in eager mode
+    each is about one device launch made by the host."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    with Count() as counter:
+        fn()
+    return counter.n
+
+
+def franka_layers(env, state) -> None:
+    """Ops and host ms (clock around each call, ending in a synchronize;
+    mean of 5 after a warm call) of the layers of one Franka step: the
+    control, phase A with the body cache reused (first substep) and with FK
+    (second substep), and the refresh. Phase D is the rest."""
+    st, params, actions = env.sim.stepper, env.sim.params, env.sim.actions
+    layers = {
+        "control (jacobian, mass matrix, 7x7 and 6x6 solves)":
+            lambda: env._control(state, state.steps, params),
+        "phase A, body cache reused (dynamics, 9x9 solve)":
+            lambda: st.group_velocities(state, actions, params, True),
+        "phase A with FK": lambda: st.group_velocities(state, actions, params, False),
+        "refresh (FK)": lambda: st.refresh_body_state(state, params),
+    }
+    for name, fn in layers.items():
+        ops = count_ops(fn)
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        log(f"  layer {name}: {ops} ops, {(time.perf_counter() - t) / 5 * 1e3:.3f} ms")
+
+
+def franka_phase(kernels) -> None:
+    """The flagship Franka OSC path at FRANKA_ENVS envs: a timed run with
+    the hand-written kernels' counts read around it (the path has none, so
+    every count must stay 0), checks of its end state, a profile, and an
+    8-env run against the stand-in golden."""
+    from test_isaacgym_tpu_torch.envs.franka import STANDIN_ROOT, FrankaOscEnv
+
+    t = time.perf_counter()
+    env = FrankaOscEnv(num_envs=FRANKA_ENVS, device="cuda")
+    log(f"franka: {FRANKA_ENVS} envs built in {time.perf_counter() - t:.2f} s")
+    env.rollout_fn(2)(env.sim.state)  # warm: allocator and library handles
+    one = env.rollout_fn(1)
+    log(f"franka: {count_ops(lambda: one(env.sim.state))} non-view PyTorch ops a step")
+    run = env.rollout_fn(FRANKA_STEPS)
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t = time.perf_counter()
+    s = run(env.sim.state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.launches)
+    step_ms = wall / FRANKA_STEPS * 1e3
+    log(f"franka main path: {FRANKA_STEPS} steps of {FRANKA_ENVS} envs in {wall:.3f} s: "
+        f"{FRANKA_ENVS * FRANKA_STEPS / wall:.1f} env-steps/s, {step_ms:.4f} ms/step, "
+        f"sphere_world launches {launches.get('sphere_world', 0)}")
+    if any(launches.values()):
+        raise RuntimeError(f"the Franka path launched hand-written kernels: {launches}")
+    for name, v in s._asdict().items():
+        if v is not None and v.is_floating_point() and not torch.isfinite(v).all():
+            raise RuntimeError(f"franka state.{name} is not finite")
+    p = env.sim.params
+    lim = p.dof_has_limits
+    if ((lim & (s.dof_pos < p.dof_lower)) | (lim & (s.dof_pos > p.dof_upper))).any():
+        raise RuntimeError("franka dof_pos left its joint limits")
+    env.sim.state = s
+    track = float(np.median(env.tracking_error(FRANKA_STEPS)))
+    log(f"franka median tracking error after {FRANKA_STEPS} steps: {track:.6f} m "
+        f"(bound {FRANKA_TRACK_BOUND})")
+    if not track < FRANKA_TRACK_BOUND:
+        raise RuntimeError(f"franka tracking error {track:.6f} m >= {FRANKA_TRACK_BOUND}")
+
+    profile_steps(env.rollout_fn(FRANKA_PROFILE_STEPS), s, step_ms, FRANKA_PROFILE_STEPS)
+    franka_layers(env, s)
+
+    golden = np.load(os.path.join(STANDIN_ROOT, "franka_osc_standin.npz"))
+    small = FrankaOscEnv(num_envs=FRANKA_GOLDEN_ENVS, device="cuda")
+    s, worst = small.sim.state, 0.0
+    chunk = small.rollout_fn(FRANKA_GOLDEN_EVERY)
+    for k in range(golden["hand_pos"].shape[0]):
+        got = {"hand_pos": s.body_pos[:, small.hand_body], "dof_pos": s.dof_pos}
+        for key, value in got.items():
+            want = golden[key][k]
+            err = float(np.abs(value.cpu().numpy() - want).max())
+            worst = max(worst, err / max(float(np.abs(want).max()), 1.0))
+        if k + 1 < golden["hand_pos"].shape[0]:
+            s = chunk(s)
+    log(f"franka {FRANKA_GOLDEN_ENVS} envs vs stand-in golden (hand_pos, dof_pos every "
+        f"{FRANKA_GOLDEN_EVERY} steps): max |err| of largest magnitude {worst:.3e}")
+    if worst > GOLDEN_TOL:
+        raise RuntimeError(f"franka departs from the stand-in golden: {worst:.3e} > {GOLDEN_TOL}")
 
 
 def main() -> int:
@@ -362,6 +485,9 @@ def main() -> int:
     log(f"120-ball drop vs golden: max |err| of largest magnitude {worst:.3e}")
     if worst > GOLDEN_TOL:
         raise RuntimeError(f"120-ball drop departs from the golden: {worst:.3e} > {GOLDEN_TOL}")
+
+    # ---- 5. the flagship Franka OSC path, with its own counts ----
+    franka_phase(_kernels)
 
     log(json.dumps({"kernels": [{
         "name": "sphere_world",

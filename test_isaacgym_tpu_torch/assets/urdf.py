@@ -1,0 +1,261 @@
+"""URDF importer -> AssetSpec.
+
+Port of test_isaacgym_tpu/assets/urdf.py (host numpy, no torch). Handles:
+  - box/sphere/capsule/cylinder geometry (collision + visual)
+  - missing <inertial> -> density-based defaults (IsaacGym behavior)
+  - fixed / revolute / continuous / prismatic / spherical joints, limits and
+    dynamics
+  - mimic-free trees only
+  - collapse_fixed (AssetOptions.collapse_fixed_joints)
+Mesh geometry and `<sdf>` collision requests (ROADMAP.md Queue 1, item 10)
+and `<fem>` soft-body links (item 11) are later slices of the port: a file
+that has them raises NotImplementedError.
+"""
+from __future__ import annotations
+
+import os
+import xml.etree.ElementTree as ET
+from typing import Optional
+
+import numpy as np
+
+from .types import (
+    GEOM_BOX,
+    GEOM_CAPSULE,
+    GEOM_CYLINDER,
+    GEOM_SPHERE,
+    JOINT_FIXED,
+    JOINT_PRISMATIC,
+    JOINT_REVOLUTE,
+    JOINT_SPHERICAL,
+    AssetSpec,
+    GeomSpec,
+    JointSpec,
+    LinkSpec,
+    _quat_to_mat_np,
+    collapse_fixed_joints,
+    compute_default_inertia,
+)
+
+_JOINT_TYPES = {
+    "fixed": JOINT_FIXED,
+    "revolute": JOINT_REVOLUTE,
+    "continuous": JOINT_REVOLUTE,
+    "prismatic": JOINT_PRISMATIC,
+    "spherical": JOINT_SPHERICAL,  # IsaacGym URDF extension
+    "floating": JOINT_FIXED,  # not used by reference assets
+    "planar": JOINT_FIXED,
+}
+
+
+def _floats(s: Optional[str], default):
+    if s is None:
+        return np.asarray(default, dtype=np.float64)
+    return np.asarray([float(x) for x in s.split()], dtype=np.float64)
+
+
+def _rpy_to_quat(rpy):
+    """URDF rpy = extrinsic XYZ (== intrinsic ZYX with reversed order) -> xyzw."""
+    r, p, y = rpy
+    cr, sr = np.cos(r / 2), np.sin(r / 2)
+    cp, sp = np.cos(p / 2), np.sin(p / 2)
+    cy, sy = np.cos(y / 2), np.sin(y / 2)
+    return np.array(
+        [
+            sr * cp * cy - cr * sp * sy,
+            cr * sp * cy + sr * cp * sy,
+            cr * cp * sy - sr * sp * cy,
+            cr * cp * cy + sr * sp * sy,
+        ]
+    )
+
+
+def _parse_origin(el):
+    if el is None:
+        return np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0])
+    xyz = _floats(el.get("xyz"), [0, 0, 0])
+    rpy = _floats(el.get("rpy"), [0, 0, 0])
+    return xyz, _rpy_to_quat(rpy)
+
+
+def _parse_geometry(geo_el, origin_el, path):
+    pos, quat = _parse_origin(origin_el)
+    g = geo_el.find("geometry")
+    if g is None:
+        return None
+    for child in g:
+        tag = child.tag
+        if tag == "box":
+            size = _floats(child.get("size"), [1, 1, 1]) * 0.5
+            return GeomSpec(GEOM_BOX, tuple(size), tuple(pos), tuple(quat))
+        if tag == "sphere":
+            return GeomSpec(
+                GEOM_SPHERE, (float(child.get("radius", 0.5)),), tuple(pos), tuple(quat)
+            )
+        if tag == "cylinder":
+            r = float(child.get("radius", 0.5))
+            l = float(child.get("length", 1.0))
+            return GeomSpec(GEOM_CYLINDER, (r, l * 0.5), tuple(pos), tuple(quat))
+        if tag == "capsule":
+            r = float(child.get("radius", 0.5))
+            l = float(child.get("length", 1.0))
+            return GeomSpec(GEOM_CAPSULE, (r, l * 0.5), tuple(pos), tuple(quat))
+        if tag == "mesh":
+            raise NotImplementedError(
+                f"{path}: <mesh> geometry ({child.get('filename', '')!r}) is not "
+                "ported to the torch package yet (ROADMAP.md Queue 1, item 10: "
+                "meshes and SDF)"
+            )
+    return None
+
+
+def load_urdf(
+    asset_root: str,
+    filename: str,
+    fix_base_link: bool = False,
+    collapse_fixed: bool = False,
+    density: float = 1000.0,
+    default_dof_drive_mode: int = 0,
+    armature: float = 0.0,
+) -> AssetSpec:
+    path = os.path.join(asset_root, filename)
+    tree = ET.parse(path)
+    robot = tree.getroot()
+
+    links_by_name = {}
+    for el in robot.findall("link"):
+        name = el.get("name")
+        if el.find("fem") is not None:
+            raise NotImplementedError(
+                f"{path}: link {name!r} has a <fem> soft body, not ported to the "
+                "torch package yet (ROADMAP.md Queue 1, item 11: soft bodies)"
+            )
+        l = LinkSpec(name=name)
+        inertial = el.find("inertial")
+        if inertial is not None:
+            mass_el = inertial.find("mass")
+            l.mass = float(mass_el.get("value")) if mass_el is not None else 0.0
+            ipos, iquat = _parse_origin(inertial.find("origin"))
+            l.com = tuple(ipos)
+            inr = inertial.find("inertia")
+            if inr is not None:
+                ixx = float(inr.get("ixx", 0))
+                iyy = float(inr.get("iyy", 0))
+                izz = float(inr.get("izz", 0))
+                ixy = float(inr.get("ixy", 0))
+                ixz = float(inr.get("ixz", 0))
+                iyz = float(inr.get("iyz", 0))
+                I = np.array([[ixx, ixy, ixz], [ixy, iyy, iyz], [ixz, iyz, izz]])
+                # rotate into link frame
+                R = _quat_to_mat_np(iquat)
+                l.inertia = R @ I @ R.T
+            else:
+                l.inertia = np.eye(3) * 1e-3
+            l.explicit_inertial = l.mass > 0
+        for c in el.findall("collision"):
+            if c.find("sdf") is not None:
+                raise NotImplementedError(
+                    f"{path}: link {name!r} asks for <sdf> collision, not ported to "
+                    "the torch package yet (ROADMAP.md Queue 1, item 10: meshes and SDF)"
+                )
+            g = _parse_geometry(c, c.find("origin"), path)
+            if g is not None:
+                l.geoms.append(g)
+        for v in el.findall("visual"):
+            g = _parse_geometry(v, v.find("origin"), path)
+            if g is not None:
+                mat = v.find("material")
+                if mat is not None:
+                    col = mat.find("color")
+                    if col is not None:
+                        rgba = _floats(col.get("rgba"), [0.7, 0.7, 0.7, 1])
+                        g.color = tuple(rgba[:3])
+                l.visuals.append(g)
+        # propagate visual color to the link's collision geoms (the renderer
+        # ray-casts collision proxies; visual-only colors would be invisible)
+        vis_col = next((v.color for v in l.visuals if v.color is not None), None)
+        if vis_col is not None:
+            for cg in l.geoms:
+                if cg.color is None:
+                    cg.color = vis_col
+        if not l.explicit_inertial:
+            compute_default_inertia(l, density)
+        links_by_name[name] = l
+
+    # joints define the tree
+    children = {}
+    joint_of_child = {}
+    for jel in robot.findall("joint"):
+        jt = _JOINT_TYPES.get(jel.get("type", "fixed"), JOINT_FIXED)
+        parent = jel.find("parent").get("link")
+        child = jel.find("child").get("link")
+        pos, quat = _parse_origin(jel.find("origin"))
+        axis = _floats(
+            jel.find("axis").get("xyz") if jel.find("axis") is not None else None,
+            [1, 0, 0],
+        )
+        n = np.linalg.norm(axis)
+        axis = axis / n if n > 1e-9 else np.array([1.0, 0, 0])
+        limit = jel.find("limit")
+        dyn = jel.find("dynamics")
+        j = JointSpec(
+            name=jel.get("name"),
+            jtype=jt,
+            parent_pos=tuple(pos),
+            parent_quat=tuple(quat),
+            axis=tuple(axis),
+            armature=armature,
+        )
+        if limit is not None:
+            if limit.get("lower") is not None or limit.get("upper") is not None:
+                if jel.get("type") != "continuous":
+                    j.has_limits = True
+                j.lower = float(limit.get("lower", 0))
+                j.upper = float(limit.get("upper", 0))
+            j.effort = float(limit.get("effort", 1e9) or 1e9)
+            j.velocity = float(limit.get("velocity", 1e9) or 1e9)
+        elif jt == JOINT_REVOLUTE and jel.get("type") == "revolute":
+            j.has_limits = True  # revolute without limit tag: URDF requires limits
+        if dyn is not None:
+            j.damping = float(dyn.get("damping", 0))
+            j.friction = float(dyn.get("friction", 0))
+        children.setdefault(parent, []).append(child)
+        joint_of_child[child] = (parent, j)
+
+    # find root: link that is never a child
+    all_children = set(joint_of_child)
+    roots = [n for n in links_by_name if n not in all_children]
+    if not roots:
+        raise ValueError(f"no root link found in {path}")
+    root = roots[0]
+
+    # topological ordering (DFS preserving declaration order)
+    order = []
+
+    def visit(name):
+        order.append(name)
+        for c in children.get(name, []):
+            visit(c)
+
+    visit(root)
+
+    index = {n: i for i, n in enumerate(order)}
+    links = []
+    for n in order:
+        l = links_by_name[n]
+        if n in joint_of_child:
+            pname, j = joint_of_child[n]
+            l.parent = index[pname]
+            l.joint = j
+        links.append(l)
+
+    asset = AssetSpec(
+        name=robot.get("name", os.path.basename(filename)),
+        links=links,
+        fix_base_link=fix_base_link,
+        default_dof_drive_mode=default_dof_drive_mode,
+        file=path,
+    )
+    if collapse_fixed:
+        asset = collapse_fixed_joints(asset)
+    return asset

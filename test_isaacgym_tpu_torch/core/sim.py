@@ -1,15 +1,16 @@
 """Native Simulator: Scene + Stepper + state tensors.
 
-Port of test_isaacgym_tpu/core/sim.py for scenes of free and static bodies.
-Replaces the reference's Sim handle + tensor API (`prepare_sim` /
-`acquire_*` / `refresh_*` / `set_*`): state is an attribute, acquire is
-attribute access, refresh happens inside step. The Jacobian and mass-matrix
-functions come with the articulated slice of the port.
+Port of test_isaacgym_tpu/core/sim.py. Replaces the reference's Sim handle +
+tensor API (`prepare_sim` / `acquire_*` / `refresh_*` / `set_*`): state is an
+attribute, acquire is attribute access, refresh happens inside step. The
+Jacobian and mass-matrix functions are plain functions of a state.
 """
 from __future__ import annotations
 
 import torch
 
+from ..physics import dynamics
+from ..physics.kinematics import body_jacobian, fk, jacobian as link_jacobian
 from ..physics.step import Stepper
 from .scene import Scene
 from .state import PhysParams, SimState, zero_actions
@@ -62,6 +63,9 @@ class Simulator:
         self.state = SimState(*[sel(n, o) for n, o in zip(self.initial_state, self.state)])
 
     # -- tensor API equivalents --------------------------------------------
+    def _tensor(self, x):
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
     @property
     def root_state(self):
         """Env-local (IsaacGym tensor semantics)."""
@@ -69,8 +73,16 @@ class Simulator:
 
     @root_state.setter
     def root_state(self, tensor):
-        t = torch.as_tensor(tensor, dtype=torch.float32, device=self.device)
-        self.state = self.state.with_root_state_tensor(t, self.env_origins)
+        self.state = self.state.with_root_state_tensor(self._tensor(tensor), self.env_origins)
+        self.state = self.stepper.refresh_body_state(self.state, self.params)
+
+    @property
+    def dof_state(self):
+        return self.state.dof_state_tensor()
+
+    @dof_state.setter
+    def dof_state(self, tensor):
+        self.state = self.state.with_dof_state_tensor(self._tensor(tensor))
         self.state = self.stepper.refresh_body_state(self.state, self.params)
 
     @property
@@ -83,12 +95,24 @@ class Simulator:
         n, b = self.state.contact_force.shape[:2]
         return self.state.contact_force.reshape(n * b, 3)
 
+    def _per_dof(self, x):
+        return self._tensor(x).reshape(self.scene.num_envs, self.scene.num_dofs_per_env)
+
+    def set_dof_position_targets(self, targets):
+        self.actions = self.actions._replace(dof_pos_target=self._per_dof(targets))
+
+    def set_dof_velocity_targets(self, targets):
+        self.actions = self.actions._replace(dof_vel_target=self._per_dof(targets))
+
+    def set_dof_actuation_forces(self, efforts):
+        self.actions = self.actions._replace(dof_effort=self._per_dof(efforts))
+
     def apply_body_forces(self, forces=None, torques=None, positions=None):
         a = self.actions
         shape = (self.scene.num_envs, self.scene.num_bodies_per_env, 3)
 
         def t(x):
-            return torch.as_tensor(x, dtype=torch.float32, device=self.device).reshape(shape)
+            return self._tensor(x).reshape(shape)
 
         if forces is not None:
             a = a._replace(body_force=t(forces))
@@ -100,6 +124,110 @@ class Simulator:
                 use_force_pos=torch.ones((), dtype=torch.bool, device=self.device),
             )
         self.actions = a
+
+    # -- jacobian / mass matrix --------------------------------------------
+    def _group_of_actor(self, actor_name: str):
+        meta = self.scene.find_actor(actor_name)
+        for gi, g in enumerate(self.scene.art_groups):
+            if meta.slot in g.slots:
+                return self.stepper.groups[gi], g, meta
+        raise KeyError(f"{actor_name} is not an articulated actor")
+
+    def _link_pose_fn(self, gi, copy, slot):
+        """state -> (pos, quat) of every sim link for one actor copy.
+        Reuses the always-fresh body-state cache when all links are real
+        bodies (no FK re-sweep); falls back to FK otherwise."""
+        if gi.all_real:
+            idx = gi.link_body_idx[copy]
+
+            def fn(state: SimState):
+                return state.body_pos[:, idx], state.body_quat[:, idx]
+
+            return fn
+        topo = gi.topo
+        didx = gi.dof_idx[copy]
+
+        def fn(state: SimState):
+            pos, quat, _, _ = fk(
+                topo,
+                state.root_pos[:, slot],
+                state.root_quat[:, slot],
+                state.root_linvel[:, slot],
+                state.root_angvel[:, slot],
+                state.dof_pos[:, didx],
+                state.dof_vel[:, didx],
+            )
+            return pos, quat
+
+        return fn
+
+    def jacobian_fn(self, actor_name: str):
+        """Returns a function state -> jacobian tensor with IsaacGym layout:
+        fixed base: (N, num_bodies-1, 6, D); floating: (N, num_bodies, 6, 6+D).
+        Rows are [linear(3); angular(3)] of each body origin."""
+        gi, g, meta = self._group_of_actor(actor_name)
+        topo = gi.topo
+        copy = list(g.slots).index(meta.slot)
+        pose = self._link_pose_fn(gi, copy, meta.slot)
+        # real links, without the base row for a fixed base (reference indexing)
+        real = gi.real_links[1:] if topo.fixed_base else gi.real_links
+
+        def fn(state: SimState):
+            pos, quat = pose(state)
+            return link_jacobian(topo, pos, quat)[:, real]  # (N, B, 6, nv)
+
+        return fn
+
+    def body_jacobian_fn(self, actor_name: str, body_name: str):
+        """Function state -> (N, 6, nv) jacobian of one named body — the
+        hot-loop variant (full-tensor jacobian_fn matches the reference layout)."""
+        gi, g, meta = self._group_of_actor(actor_name)
+        topo = gi.topo
+        copy = list(g.slots).index(meta.slot)
+        body_idx = meta.asset.rigid_body_dict()[body_name]
+        link = [int(l) for l, b in enumerate(topo.body_of_link) if b == body_idx][0]
+        pose = self._link_pose_fn(gi, copy, meta.slot)
+
+        def fn(state: SimState):
+            pos, quat = pose(state)
+            return body_jacobian(topo, pos, quat, link)
+
+        return fn
+
+    def mass_matrix_fn(self, actor_name: str):
+        """Function (state[, params]) -> (N, D, D) joint-space mass matrix
+        (fixed-base layout of acquire_mass_matrix_tensor).
+
+        Consumes the RUNTIME body params (mass/com/inertia), so the exposed
+        tensor agrees with the dynamics after domain randomization — the same
+        gather physics/step.py does. `params` defaults to the simulator's
+        current params."""
+        gi, g, meta = self._group_of_actor(actor_name)
+        topo = gi.topo
+        copy = list(g.slots).index(meta.slot)
+        base = 0 if topo.fixed_base else 6
+        pose = self._link_pose_fn(gi, copy, meta.slot)
+        lbidx = gi.link_body_idx[copy]  # (Ls,) env body index
+        is_real = gi.link_is_real
+
+        def fn(state: SimState, params=None):
+            p = params if params is not None else self.params
+            pos, quat = pose(state)
+            mass_l, com_l, inert_l = p.body_mass[:, lbidx], p.body_com[:, lbidx], p.body_inertia[:, lbidx]
+            if not gi.all_real:
+                mass_l = torch.where(is_real, mass_l, topo.mass)
+                com_l = torch.where(is_real[..., None], com_l, topo.com)
+                inert_l = torch.where(is_real[..., None, None], inert_l, topo.inertia)
+            M = dynamics.mass_matrix(topo, pos, quat, mass=mass_l, com=com_l, inertia=inert_l)
+            return M[..., base:, base:]
+
+        return fn
+
+    def jacobian(self, actor_name: str):
+        return self.jacobian_fn(actor_name)(self.state)
+
+    def mass_matrix(self, actor_name: str):
+        return self.mass_matrix_fn(actor_name)(self.state)
 
 
 def make_sim(builder, device="cuda") -> Simulator:

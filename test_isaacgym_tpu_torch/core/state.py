@@ -85,6 +85,12 @@ class SimState(NamedTuple):
             root_angvel=t[..., 10:13].contiguous(),
         )
 
+    def with_dof_state_tensor(self, tensor):
+        """set_dof_state_tensor: (N*D, 2) rows of [pos, vel]."""
+        n, d = self.dof_pos.shape
+        t = tensor.reshape(n, d, 2)
+        return self._replace(dof_pos=t[..., 0].contiguous(), dof_vel=t[..., 1].contiguous())
+
 
 class PhysParams(NamedTuple):
     """Runtime-mutable physical parameters, leading env axis N."""

@@ -1,4 +1,4 @@
-from . import quat  # noqa: F401
+from . import quat, spatial, transform  # noqa: F401
 from .quat import (  # noqa: F401
     matrix_to_quat,
     orientation_error,
@@ -17,4 +17,11 @@ from .quat import (  # noqa: F401
     quat_to_angle_axis,
     quat_to_euler_zyx,
     quat_to_matrix,
+)
+from .transform import (  # noqa: F401
+    transform_apply,
+    transform_identity,
+    transform_inverse,
+    transform_mul,
+    transform_vector,
 )

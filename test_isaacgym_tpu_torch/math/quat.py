@@ -14,7 +14,11 @@ from __future__ import annotations
 import torch
 
 
-def _cross(a, b):
+def cross(a, b):
+    """Cross product over the last axis, broadcasting over leading axes of
+    any rank (jnp.cross semantics; torch.linalg.cross wants equal ranks)."""
+    if a.dim() != b.dim():
+        a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
 
 
@@ -61,15 +65,15 @@ def quat_rotate(q, v):
     """Rotate vector v by quaternion q: q * v * q^-1."""
     qv = q[..., :3]
     qw = q[..., 3:4]
-    t = 2.0 * _cross(qv, v)
-    return v + qw * t + _cross(qv, t)
+    t = 2.0 * cross(qv, v)
+    return v + qw * t + cross(qv, t)
 
 
 def quat_rotate_inverse(q, v):
     qv = q[..., :3]
     qw = q[..., 3:4]
-    t = 2.0 * _cross(qv, v)
-    return v - qw * t + _cross(qv, t)
+    t = 2.0 * cross(qv, v)
+    return v - qw * t + cross(qv, t)
 
 
 def quat_from_angle_axis(angle, axis):

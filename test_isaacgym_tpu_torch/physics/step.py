@@ -1,49 +1,106 @@
 """The simulation step.
 
-Port of test_isaacgym_tpu/physics/step.py for scenes of free and static
-bodies: phase B (free-body velocities before contact), phase C (the contact
-solve), the free-body half of phase D (integration) and the body-state
-refresh, as plain functions of tensors:
+Port of test_isaacgym_tpu/physics/step.py as plain functions of tensors:
     step(state, actions, params) -> state
-Articulated groups, attractors and soft bodies are a later slice of the port;
-a scene with any of them raises NotImplementedError at construction, as does
-one whose static contact table has rows (only the sphere-world contact path
-is ported).
+with all substeps: phase A (articulated groups: drives with implicit PD,
+external link forces, forward dynamics, joint friction), phase B (free-body
+velocities before contact), phase C (the contact solve), phase D (limits and
+position integration) and the body-state refresh.
+
+Not ported yet, and raising NotImplementedError at construction: attractors,
+soft bodies, and a scene whose static contact table has rows (narrowphase
+and the table solve, articulation-link contact rows among them; only the
+sphere-world contact path is ported).
 
 `rollout` is a Python loop: PyTorch runs eagerly, and each step launches its
 kernels on the current stream without waiting for them.
 """
 from __future__ import annotations
 
+from typing import List, NamedTuple
+
 import numpy as np
 import torch
 
 from ..core.scene import Scene
 from ..core.state import Actions, PhysParams, SimState
-from ..math.quat import quat_integrate, quat_rotate, quat_to_matrix
+from ..math.quat import cross as _cross, quat_integrate, quat_rotate, quat_to_matrix
 from ..utils.linalg import spd_solve
 from . import contacts as contacts_mod
+from . import dynamics
+from .kinematics import ArtTopo, fk, topo_from_group
+
+DOF_MODE_NONE, DOF_MODE_POS, DOF_MODE_VEL, DOF_MODE_EFFORT = 0, 1, 2, 3
 
 
-def _cross(a, b):
-    return torch.linalg.cross(a, b, dim=-1)
+class _GroupIndex(NamedTuple):
+    """Static index tensors, on the device, tying one ArtGroup into the
+    canonical layout."""
+
+    topo: ArtTopo
+    slots: torch.Tensor  # (K,) actor slots
+    dof_idx: torch.Tensor  # (K, Dg) into env dof axis
+    dof_flat: torch.Tensor  # (K*Dg,) the same, flat
+    body_flat: torch.Tensor  # (K*L_real,) env body of each real link, flat
+    real_links: torch.Tensor  # (L_real,) sim-link indices that are real bodies
+    link_body_idx: torch.Tensor  # (K, Ls) env body index per sim link (0 where synthetic)
+    link_is_real: torch.Tensor  # (Ls,) bool
+    all_real: bool  # every sim link is a real body (no spherical-joint expansion)
 
 
 class Stepper:
     def __init__(self, scene: Scene, device="cuda"):
-        if scene.art_groups:
-            raise NotImplementedError(
-                "articulated actors are not ported to the torch package yet"
-            )
         if scene.attractors:
-            raise NotImplementedError("attractors are not ported to the torch package yet")
+            raise NotImplementedError(
+                "attractors are not ported to the torch package yet "
+                "(ROADMAP.md Queue 1, item 4: a sub-slice of their own)"
+            )
         if scene.soft is not None:
-            raise NotImplementedError("soft bodies are not ported to the torch package yet")
+            raise NotImplementedError(
+                "soft bodies are not ported to the torch package yet "
+                "(ROADMAP.md Queue 1, item 11)"
+            )
         self.scene = scene
         self.device = torch.device(device)
+        dev = self.device
+
+        def index(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.long, device=dev)
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+        self.groups: List[_GroupIndex] = []
+        for g in scene.art_groups:
+            Dg = g.num_dofs
+            dof_idx = g.dof_start[:, None] + np.arange(Dg)[None, :]
+            real_links = np.array([i for i, b in enumerate(g.body_of_link) if b >= 0])
+            body_idx = g.body_start[:, None] + g.body_of_link[None, real_links]
+            link_body = np.where(g.body_of_link >= 0, g.body_of_link, 0)
+            link_body_idx = g.body_start[:, None] + link_body[None, :]
+            link_is_real = np.asarray(g.body_of_link >= 0)
+            self.groups.append(
+                _GroupIndex(
+                    topo=topo_from_group(g, dev),
+                    slots=index(g.slots),
+                    dof_idx=index(dof_idx),
+                    dof_flat=index(dof_idx.reshape(-1)),
+                    body_flat=index(body_idx.reshape(-1)),
+                    real_links=index(real_links),
+                    link_body_idx=index(link_body_idx),
+                    link_is_real=torch.as_tensor(link_is_real, device=dev),
+                    all_real=bool(link_is_real.all()),
+                )
+            )
         self.free = scene.free_group
         self.static = scene.static_group
         self.contact = contacts_mod.ContactSolver(scene)
+        if self.contact.any_link:
+            raise NotImplementedError(
+                "this scene has contact rows on articulation links: two-way "
+                "link contacts are not ported to the torch package yet "
+                "(ROADMAP.md Queue 1, item 7: contacts part 2)"
+            )
         if self.contact.num_contacts:
             raise NotImplementedError(
                 f"this scene has {self.contact.num_contacts} static contact rows: "
@@ -54,14 +111,6 @@ class Stepper:
         self.dt = sp.dt
         self.substeps = max(1, sp.substeps)
         self.h = sp.dt / self.substeps
-
-        dev = self.device
-
-        def index(a):
-            return torch.as_tensor(np.asarray(a), dtype=torch.long, device=dev)
-
-        def f32(a):
-            return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
 
         # (slots, body slots) of the free and static groups, on the device
         self._groups = [
@@ -79,10 +128,165 @@ class Stepper:
 
     # ------------------------------------------------------------------
     def step(self, state: SimState, actions: Actions, params: PhysParams) -> SimState:
+        # body state is fresh at step entry (refresh_body_state runs at the
+        # end of every step and after every state write), so the first
+        # substep reuses it instead of re-running FK — with the final
+        # refresh, 2 link sweeps per step instead of substeps+1.
+        first = True
         for _ in range(self.substeps):
-            state = self._substep(state, actions, params)
+            state = self._substep(state, actions, params, reuse_body_state=first)
+            first = False
         state = self.refresh_body_state(state, params)
         return state._replace(time=state.time + self.dt, steps=state.steps + 1)
+
+    def _link_state_from_bodies(self, gi: _GroupIndex, state: SimState):
+        """Gather per-sim-link world state from the body cache (valid only
+        when every sim link is a real body — no spherical-joint expansion)."""
+        idx = gi.link_body_idx  # (K, Ls)
+        return (
+            state.body_pos[:, idx],
+            state.body_quat[:, idx],
+            state.body_linvel[:, idx],
+            state.body_angvel[:, idx],
+        )
+
+    @staticmethod
+    def _real(gi: _GroupIndex, x):
+        """The real-body links of a per-sim-link tensor (..., Ls, ...) with the
+        link axis third, flattened with the copy axis: (N, K*L_real, ...)."""
+        if not gi.all_real:
+            x = x[:, :, gi.real_links]
+        return x.reshape((x.shape[0], -1) + tuple(x.shape[3:]))
+
+    @staticmethod
+    def _link_params(gi: _GroupIndex, per_body, default):
+        """Per-sim-link values: the env body's runtime value on real links,
+        `default` (a tensor or a number) on synthetic ones."""
+        x = per_body[:, gi.link_body_idx]  # (N, K, Ls, ...)
+        if gi.all_real:
+            return x
+        mask = gi.link_is_real.reshape((-1,) + (1,) * (x.dim() - 3))
+        return torch.where(mask, x, default)
+
+    # ------------------------------------------------------------------
+    def group_velocities(self, state: SimState, actions: Actions, params: PhysParams,
+                         reuse_body_state: bool = False):
+        """Phase A: each articulated group's generalized velocity after
+        drives, applied forces and forward dynamics, before contact.
+        Returns one dict of the group's tensors per group."""
+        h = self.h
+        g_vec = params.gravity
+        group_data = []
+        for gi in self.groups:
+            topo = gi.topo
+            base = 0 if topo.fixed_base else 6
+
+            slots, didx = gi.slots, gi.dof_idx
+            root_pos = state.root_pos[:, slots]  # (N, K, 3)
+            root_quat = state.root_quat[:, slots]
+            root_lin = state.root_linvel[:, slots]
+            root_ang = state.root_angvel[:, slots]
+            q = state.dof_pos[:, didx]  # (N, K, Dg)
+            qd = state.dof_vel[:, didx]
+
+            if reuse_body_state and gi.all_real:
+                pos, quat, lin, ang = self._link_state_from_bodies(gi, state)
+            else:
+                pos, quat, lin, ang = fk(
+                    topo, root_pos, root_quat, root_lin, root_ang, q, qd
+                )
+
+            # --- drives ---
+            mode = params.dof_drive_mode[:, didx]
+            kp = params.dof_stiffness[:, didx]
+            kd = params.dof_damping[:, didx]
+            q_t = actions.dof_pos_target[:, didx]
+            v_t_raw = actions.dof_vel_target[:, didx]
+            eff = actions.dof_effort[:, didx]
+            max_eff = params.dof_max_effort[:, didx]
+
+            kp_eff = torch.where(mode == DOF_MODE_POS, kp, 0.0)
+            v_t = torch.where(mode == DOF_MODE_VEL, v_t_raw, 0.0)
+            tau_raw = kp_eff * (q_t - q) + kd * (v_t - qd) - h * kp_eff * qd
+            tau_drive = torch.clamp(tau_raw, -max_eff, max_eff)
+            # implicit drive damping is only valid while the drive is linear;
+            # in saturation the drive is a constant torque (PhysX-like force
+            # limit), so the matrix term must vanish or it over-damps.
+            sat_scale = torch.clamp(max_eff / tau_raw.abs().clamp_min(1e-9), 0.0, 1.0)
+            tau_eff = torch.where(
+                mode == DOF_MODE_EFFORT, torch.clamp(eff, -max_eff, max_eff), 0.0
+            )
+            tau_j = tau_drive + tau_eff
+            d_eff_j = sat_scale * (kd + h * kp_eff)
+            armature = params.dof_armature[:, didx]
+
+            if base:
+                zpad = torch.zeros(tau_j.shape[:-1] + (6,), dtype=tau_j.dtype,
+                                   device=tau_j.device)
+                tau = torch.cat([zpad, tau_j], dim=-1)
+                d_eff = torch.cat([zpad, d_eff_j], dim=-1)
+                diag_add = torch.cat([zpad, armature], dim=-1)
+            else:
+                tau, d_eff, diag_add = tau_j, d_eff_j, armature
+
+            # --- external forces on links (ENV_SPACE world axes) ---
+            bforce = self._link_params(gi, actions.body_force, 0.0)
+            btorque = self._link_params(gi, actions.body_torque, 0.0)
+            origin = pos[..., 0:1, :]
+            arm = pos - origin
+            f_ext = torch.cat(
+                [btorque + _cross(arm, bforce), bforce], dim=-1
+            )  # (N, K, Ls, 6) about root origin
+
+            # runtime masses/inertia (randomizable): gather real-link params
+            mass_l = self._link_params(gi, params.body_mass, topo.mass)
+            com_l = self._link_params(gi, params.body_com, topo.com)
+            inert_l = self._link_params(gi, params.body_inertia, topo.inertia)
+            # gravity disable per body
+            no_grav = self._link_params(gi, params.body_disable_gravity, False)
+            # counteract gravity on disabled links via f_ext
+            anti_g = mass_l[..., None] * g_vec * no_grav[..., None]
+            com_world = pos + quat_rotate(quat, com_l)
+            arm_c = com_world - origin
+            f_ext = f_ext + torch.cat([_cross(arm_c, -anti_g), -anti_g], dim=-1)
+
+            # armature adds to the mass-matrix diagonal: A = M + h*d_eff + armature
+            qdd, M_full, A_op = dynamics.forward_dynamics(
+                topo, pos, quat, lin, ang, qd, tau, h,
+                d_eff=d_eff + diag_add / h,
+                gravity=g_vec,
+                mass=mass_l, com=com_l, inertia=inert_l,
+                f_ext=f_ext,
+                return_op=True,
+            )
+
+            # --- integrate joints (semi-implicit) ---
+            qd_new = qd + h * qdd[..., base:]
+            maxv = params.dof_max_velocity[:, didx]
+            qd_new = torch.clamp(qd_new, -maxv, maxv)
+
+            # joint Coulomb friction (DOF property `friction`): a friction
+            # torque F can change joint velocity by at most F*h/M_jj in one
+            # substep; removing min(|qd|, that) is the unconditionally stable
+            # velocity-level form (never reverses sign)
+            fric = params.dof_friction[:, didx]
+            m_jj = torch.diagonal(M_full, dim1=-2, dim2=-1)[..., base:]
+            dv_max = fric * h / m_jj.clamp_min(1e-9)
+            qd_new = qd_new - torch.clamp(qd_new, -dv_max, dv_max)
+
+            # assemble the generalized velocity vector matching the jacobian
+            # column layout ([lin(3), ang(3), joints] for floating base)
+            if topo.fixed_base:
+                qd_full = qd_new
+            else:
+                v_new = root_lin + h * qdd[..., 0:3]
+                w_new = root_ang + h * qdd[..., 3:6]
+                qd_full = torch.cat([v_new, w_new, qd_new], dim=-1)
+            group_data.append(
+                dict(pos=pos, quat=quat, qd_full=qd_full, A_op=A_op, q=q,
+                     root_pos=root_pos, root_quat=root_quat, base=base)
+            )
+        return group_data
 
     # ------------------------------------------------------------------
     def free_velocities(self, state: SimState, actions: Actions, params: PhysParams):
@@ -127,47 +331,109 @@ class Stepper:
         w1 = torch.clamp(w1, -mav, mav)
         return dict(p0=p0, q0=q0, v=v1, w=w1, m=m, I_w=I_w, com_w=com_w, com=com)
 
-    def _substep(self, state: SimState, actions: Actions, params: PhysParams) -> SimState:
+    def _substep(self, state: SimState, actions: Actions, params: PhysParams,
+                 reuse_body_state: bool = False) -> SimState:
         h = self.h
+        # ---------- phase A: articulated groups — velocities (pre-contact) ----------
+        group_data = self.group_velocities(state, actions, params, reuse_body_state)
+
         # ---------- phase B: free bodies — velocities (pre-contact) ----------
         fd = self.free_velocities(state, actions, params)
 
         # ---------- phase C: contact solve ----------
         # (enabled only with free bodies: a contact-table row raises at
-        # construction, and both fast paths are made of free bodies)
+        # construction, and both fast paths are made of free bodies; an
+        # articulation's generalized velocity passes through unchanged)
         if self.contact.enabled:
-            # CURRENT body positions: free roots at this substep's entry,
-            # statics from the body cache
-            cur_bp = state.body_pos.index_copy(1, self._fbody, fd["p0"])
+            # CURRENT body positions: articulation links at this substep's
+            # FK, free roots at this substep's entry, statics from the cache
+            # (the sphere world reads positions only)
+            cur_bp = state.body_pos
+            for gi, gd in zip(self.groups, group_data):
+                cur_bp = cur_bp.index_copy(1, gi.body_flat, self._real(gi, gd["pos"]))
+            cur_bp = cur_bp.index_copy(1, self._fbody, fd["p0"])
             fd["v"], fd["w"], cf = self.contact.solve(
                 cur_bp, fd["v"], fd["w"], fd["m"], fd["I_w"], params, h
             )
             state = state._replace(contact_force=cf)
 
-        # ---------- phase D: position integration ----------
-        if fd is None:
-            return state
-        v1, w1 = fd["v"], fd["w"]
-        # integrate about com to respect com offsets
-        com_w1 = fd["com_w"] + h * v_com(v1, w1, fd["com_w"], fd["p0"])
-        q1 = quat_integrate(fd["q0"], w1, h)
-        p1 = com_w1 - quat_rotate(q1, fd["com"])
-        fs = self._fslots
+        # ---------- phase D: limits + position integration ----------
+        root_pos, root_quat = state.root_pos, state.root_quat
+        root_lin, root_ang = state.root_linvel, state.root_angvel
+        dof_pos, dof_vel = state.dof_pos, state.dof_vel
+        for gi, gd in zip(self.groups, group_data):
+            base = gd["base"]
+            didx = gi.dof_idx
+            qd_new = gd["qd_full"][..., base:]
+            q_new = gd["q"] + h * qd_new
+            lo = params.dof_lower[:, didx]
+            hi = params.dof_upper[:, didx]
+            has_lim = params.dof_has_limits[:, didx]
+            q_clamped = torch.clamp(q_new, lo, hi)
+            hit_lo = has_lim & (q_new < lo)
+            hit_hi = has_lim & (q_new > hi)
+            q_new = torch.where(has_lim, q_clamped, q_new)
+            qd_new = torch.where(hit_lo, qd_new.clamp_min(0.0), qd_new)
+            qd_new = torch.where(hit_hi, qd_new.clamp_max(0.0), qd_new)
+            n = q_new.shape[0]
+            dof_vel = dof_vel.index_copy(1, gi.dof_flat, qd_new.reshape(n, -1))
+            dof_pos = dof_pos.index_copy(1, gi.dof_flat, q_new.reshape(n, -1))
+            if not gi.topo.fixed_base:
+                slots = gi.slots
+                v_new = gd["qd_full"][..., 0:3]
+                w_new = gd["qd_full"][..., 3:6]
+                root_lin = root_lin.index_copy(1, slots, v_new)
+                root_ang = root_ang.index_copy(1, slots, w_new)
+                root_pos = root_pos.index_copy(1, slots, gd["root_pos"] + h * v_new)
+                root_quat = root_quat.index_copy(
+                    1, slots, quat_integrate(gd["root_quat"], w_new, h)
+                )
+
+        if fd is not None:
+            v1, w1 = fd["v"], fd["w"]
+            # integrate about com to respect com offsets
+            com_w1 = fd["com_w"] + h * v_com(v1, w1, fd["com_w"], fd["p0"])
+            q1 = quat_integrate(fd["q0"], w1, h)
+            p1 = com_w1 - quat_rotate(q1, fd["com"])
+            fs = self._fslots
+            root_pos = root_pos.index_copy(1, fs, p1)
+            root_quat = root_quat.index_copy(1, fs, q1)
+            root_lin = root_lin.index_copy(1, fs, v1)
+            root_ang = root_ang.index_copy(1, fs, w1)
+
         return state._replace(
-            root_pos=state.root_pos.index_copy(1, fs, p1),
-            root_quat=state.root_quat.index_copy(1, fs, q1),
-            root_linvel=state.root_linvel.index_copy(1, fs, v1),
-            root_angvel=state.root_angvel.index_copy(1, fs, w1),
+            root_pos=root_pos,
+            root_quat=root_quat,
+            root_linvel=root_lin,
+            root_angvel=root_ang,
+            dof_pos=dof_pos,
+            dof_vel=dof_vel,
         )
 
     # ------------------------------------------------------------------
     def refresh_body_state(self, state: SimState, params: PhysParams) -> SimState:
-        """Recompute the per-body world state cache from the roots (the
-        reference's refresh_rigid_body_state_tensor, now derived)."""
+        """Recompute the per-body world state cache from roots + dofs
+        (the reference's refresh_rigid_body_state_tensor, now derived)."""
         body_pos = state.body_pos
         body_quat = state.body_quat
         body_lin = state.body_linvel
         body_ang = state.body_angvel
+        for gi in self.groups:
+            slots, didx = gi.slots, gi.dof_idx
+            pos, quat, lin, ang = fk(
+                gi.topo,
+                state.root_pos[:, slots],
+                state.root_quat[:, slots],
+                state.root_linvel[:, slots],
+                state.root_angvel[:, slots],
+                state.dof_pos[:, didx],
+                state.dof_vel[:, didx],
+            )
+            bidx = gi.body_flat
+            body_pos = body_pos.index_copy(1, bidx, self._real(gi, pos))
+            body_quat = body_quat.index_copy(1, bidx, self._real(gi, quat))
+            body_lin = body_lin.index_copy(1, bidx, self._real(gi, lin))
+            body_ang = body_ang.index_copy(1, bidx, self._real(gi, ang))
         for slots, body in self._groups:
             body_pos = body_pos.index_copy(1, body, state.root_pos[:, slots])
             body_quat = body_quat.index_copy(1, body, state.root_quat[:, slots])

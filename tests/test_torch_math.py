@@ -1,8 +1,10 @@
-"""Port parity: quaternion math and small SPD solves against the JAX package.
+"""Port parity: quaternion, spatial and transform math and small SPD solves
+against the JAX package.
 
 Random float32 batches made with numpy go through both packages. Tolerance:
-1e-5 of the largest magnitude of each result (the port repeats the JAX
-package's operations in the same order).
+1e-5 of the largest magnitude of each result for quaternions and solves;
+1e-6 absolute for math/spatial.py and math/transform.py on unit-scale
+inputs (the port repeats the JAX package's operations in the same order).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +71,83 @@ def test_quat_matches_jax(name):
 
 def test_quat_identity():
     _close(tq.quat_identity((5,), device="cpu").numpy(), jq.quat_identity((5,)))
+
+
+def _close_abs(got, want, atol=1e-6):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert float(np.abs(got - want).max()) <= atol
+
+
+def _ic():
+    """Random symmetric positive definite (64, 3, 3, 3) inertias."""
+    A = RNG.normal(size=B + (3, 3)) * 0.3
+    return (A @ np.swapaxes(A, -1, -2) + 0.01 * np.eye(3)).astype(np.float32)
+
+
+def _m():
+    return RNG.uniform(0.2, 2.0, size=B).astype(np.float32)
+
+
+SPATIAL_CASES = {
+    "cross_motion": lambda: (_v(k=6), _v(k=6)),
+    "cross_force": lambda: (_v(k=6), _v(k=6)),
+    "inertia_mul": lambda: (_m(), _v(s=0.3), _ic(), _v(k=6)),
+    "dot": lambda: (_v(k=6), _v(k=6)),
+    "inertia_params_add": lambda: ((_m(), _v(s=0.3), _ic()), (_m(), _v(s=0.3), _ic())),
+    "mm3": lambda: (_v(k=9).reshape(B + (3, 3)), _v(k=9).reshape(B + (3, 3))),
+    "sandwich3": lambda: (np.array(jq.quat_to_matrix(jnp.asarray(_q()))), _ic()),
+    "skew": lambda: (_v(),),
+    "motion_subspace_revolute": lambda: (_v(), _v()),
+    "motion_subspace_prismatic": lambda: (_v(),),
+    "point_velocity": lambda: (_v(k=6), _v()),
+    "force_at_point": lambda: (_v(), _v(), _v()),
+}
+TRANSFORM_CASES = {
+    "transform_apply": lambda: (_v(), _q(), _v()),
+    "transform_vector": lambda: (_q(), _v()),
+    "transform_mul": lambda: (_v(), _q(), _v(), _q()),
+    "transform_inverse": lambda: (_v(), _q()),
+}
+
+
+def _convert(args, to):
+    return tuple(_convert(a, to) if isinstance(a, tuple) else to(a) for a in args)
+
+
+@pytest.mark.parametrize("module,name", [("spatial", n) for n in sorted(SPATIAL_CASES)]
+                         + [("transform", n) for n in sorted(TRANSFORM_CASES)])
+def test_spatial_and_transform_match_jax(module, name):
+    """math/spatial.py and math/transform.py at 1e-6 absolute on random
+    batches of unit-scale inputs."""
+    import test_isaacgym_tpu.math as jm
+    import test_isaacgym_tpu_torch.math as tm
+
+    args = {**SPATIAL_CASES, **TRANSFORM_CASES}[name]()
+    want = getattr(getattr(jm, module), name)(*_convert(args, jnp.asarray))
+    got = getattr(getattr(tm, module), name)(*_convert(args, torch.as_tensor))
+    if isinstance(want, tuple):
+        for g, w in zip(got, want):
+            _close_abs(g.numpy(), w)
+    else:
+        _close_abs(got.numpy(), want)
+
+
+def test_transform_identity_and_exports():
+    import test_isaacgym_tpu.math as jm
+    import test_isaacgym_tpu_torch.math as tm
+
+    for g, w in zip(tm.transform_identity((4,), device="cpu"), jm.transform_identity((4,))):
+        _close_abs(g.numpy(), w)
+    for name in dir(jm):
+        if not name.startswith("_"):
+            assert hasattr(tm, name), name
+
+
+def test_cross_broadcasts_like_jnp():
+    a, b = _v(), _v(shape=(3,))
+    _close_abs(tq.cross(torch.as_tensor(a), torch.as_tensor(b)).numpy(),
+               np.cross(a, b))
 
 
 def _spd(n, batch=(32,)):

@@ -1,0 +1,88 @@
+"""Port parity: the URDF importer against the JAX package.
+
+The mesh-free Panda stand-in loads to the same AssetSpec numbers in both
+packages (links, inertials, joints, limits, dof properties), with and without
+collapse_fixed; primitive geometry parses alike; and what the port does not
+read yet (<mesh> geometry, <sdf> collision, <fem> links) raises
+NotImplementedError.
+"""
+import numpy as np
+import pytest
+
+from test_isaacgym_tpu.assets import load_urdf as jax_load_urdf
+from test_isaacgym_tpu_torch.assets import load_urdf
+from test_isaacgym_tpu_torch.envs.franka import FRANKA_URDF, STANDIN_ROOT
+
+
+def _same_asset(got, want):
+    assert got.name == want.name and got.fix_base_link == want.fix_base_link
+    assert got.rigid_body_names() == want.rigid_body_names()
+    assert got.dof_names() == want.dof_names() and got.dof_types() == want.dof_types()
+    for a, b in zip(got.links, want.links):
+        assert (a.parent, a.explicit_inertial) == (b.parent, b.explicit_inertial), a.name
+        np.testing.assert_array_equal(a.mass, b.mass)
+        np.testing.assert_array_equal(a.com, b.com)
+        np.testing.assert_array_equal(a.inertia, b.inertia)
+        assert (a.joint is None) == (b.joint is None)
+        if a.joint is not None:
+            assert vars(a.joint) == vars(b.joint), a.name
+        assert len(a.geoms) == len(b.geoms) and len(a.visuals) == len(b.visuals)
+        for ga, gb in zip(a.geoms + a.visuals, b.geoms + b.visuals):
+            assert (ga.kind, ga.size, ga.pos, ga.quat, ga.color) == (
+                gb.kind, gb.size, gb.pos, gb.quat, gb.color)
+    for f in got.dof_properties().dtype.names:
+        np.testing.assert_array_equal(got.dof_properties()[f], want.dof_properties()[f], f)
+
+
+@pytest.mark.parametrize("collapse", [False, True])
+@pytest.mark.parametrize("fixed", [True, False])
+def test_standin_loads_like_jax(fixed, collapse):
+    kw = dict(fix_base_link=fixed, collapse_fixed=collapse, armature=0.01)
+    got = load_urdf(STANDIN_ROOT, FRANKA_URDF, **kw)
+    _same_asset(got, jax_load_urdf(STANDIN_ROOT, FRANKA_URDF, **kw))
+    names = got.rigid_body_names()
+    if not collapse:
+        assert len(names) == 12 and got.num_dofs == 9
+        assert names[:9] == [f"panda_link{i}" for i in range(9)]
+        assert names[9:] == ["panda_hand", "panda_leftfinger", "panda_rightfinger"]
+    assert all(not link.geoms and not link.visuals for link in got.links)
+
+
+_PRIMITIVES = """<?xml version="1.0"?>
+<robot name="prims">
+  <link name="a">
+    <collision><origin xyz="0 0 0.1" rpy="0.1 0.2 0.3"/><geometry><box size="0.2 0.4 0.6"/></geometry></collision>
+    <visual><geometry><sphere radius="0.3"/></geometry><material name="m"><color rgba="0.1 0.2 0.3 1"/></material></visual>
+  </link>
+  <link name="b">
+    <collision><geometry><capsule radius="0.05" length="0.3"/></geometry></collision>
+    <collision><geometry><cylinder radius="0.07" length="0.2"/></geometry></collision>
+  </link>
+  <link name="c"><collision><geometry><sphere radius="0.1"/></geometry></collision></link>
+  <joint name="ab" type="continuous"><parent link="a"/><child link="b"/><axis xyz="0 0 2"/>
+    <dynamics damping="0.5" friction="0.2"/></joint>
+  <joint name="bc" type="prismatic"><parent link="b"/><child link="c"/>
+    <origin xyz="0.1 0 0"/><limit lower="-0.1" upper="0.2" effort="30" velocity="1"/></joint>
+</robot>
+"""
+
+
+def test_primitive_geometry_and_default_inertia_like_jax(tmp_path):
+    (tmp_path / "prims.urdf").write_text(_PRIMITIVES)
+    got = load_urdf(str(tmp_path), "prims.urdf", density=500.0)
+    _same_asset(got, jax_load_urdf(str(tmp_path), "prims.urdf", density=500.0))
+    assert got.links[0].geoms[0].color == (0.1, 0.2, 0.3)  # visual color carried over
+
+
+@pytest.mark.parametrize("element,what", [
+    ('<collision><geometry><mesh filename="part.obj"/></geometry></collision>', "<mesh>"),
+    ('<visual><geometry><mesh filename="part.obj"/></geometry></visual>', "<mesh>"),
+    ('<collision><geometry><box size="1 1 1"/></geometry><sdf resolution="64"/></collision>', "<sdf>"),
+    ('<fem><tetmesh filename="part.tet"/></fem>', "<fem>"),
+])
+def test_unported_elements_raise(tmp_path, element, what):
+    (tmp_path / "x.urdf").write_text(
+        f'<robot name="x"><link name="a">{element}</link></robot>'
+    )
+    with pytest.raises(NotImplementedError, match=what):
+        load_urdf(str(tmp_path), "x.urdf")
