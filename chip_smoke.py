@@ -14,7 +14,13 @@ against tests/goldens/balls_drop.npz, then drives the flagship Franka OSC
 path (envs/franka.py, 4096 envs of the mesh-free Panda stand-in, plain
 PyTorch ops and no hand-written kernel: its counts are read around its own
 run and must stay 0), profiles 10 of its steps, checks an 8-env run against
-the stand-in golden, and prints:
+the stand-in golden, then drives the franka_cube pick path (envs/franka_cube.py,
+4096 envs of the stand-in with collision boxes on the hand and fingers, OSC,
+the contact table's narrowphase and two-way Jacobi solve: plain PyTorch, its
+sphere-world count must stay 0), runs one of its steps with host syncs made
+errors, times its layers, profiles 10 of its steps, checks a 4-env run of
+each controller against franka_cube_standin.npz, reports its grip and lift
+shares beside the JAX env's, and prints:
   * the card's name and power limit (nvidia-smi);
   * per-phase numbers (build seconds, kernel and plain times, each launch's
     share of a solve and one sweep's cost, ball-steps/s, Franka env-steps/s
@@ -70,6 +76,22 @@ FRANKA_GOLDEN_ENVS, FRANKA_GOLDEN_EVERY = 8, 10  # franka_osc_standin.npz: steps
 # script); the card holds the golden to 1e-4, so 0.05 m leaves room for
 # rounding and fails a controller or a step that has gone wrong.
 FRANKA_TRACK_BOUND = 0.05
+# the franka_cube pick path (bench.py's second config: 4096 envs, OSC)
+CUBE_ENVS, CUBE_STEPS, CUBE_PROFILE_STEPS = 4096, 100, 10
+# franka_cube_standin.npz: 4 envs of each controller, steps 0, 10, ..., 60
+CUBE_GOLDEN_ENVS, CUBE_GOLDEN_EVERY = 4, 10
+# The JAX env on the stand-in, OSC, CUBE_STEPS steps of the same CUBE_ENVS
+# envs of seed 42 (tests/test_torch_franka_cube.py's docstring and its
+# script): grip and lift shares, and the lowest cube bottom at the end.
+JAX_GRIP_SHARE, JAX_LIFT_SHARE = 1.0, 0.997803
+# A few envs press a dropped cube into the table with the open hand; the
+# JAX env's lowest cube ends 2.3 cm into the 0.4 m table top.
+JAX_CUBE_BOTTOM = 0.376557
+# A contact-rich grasp is chaotic: after 100 steps single envs part from
+# the JAX env's (the goldens bound the physics), so the shares may fall
+# short by CUBE_SHARE_SLACK and the lowest cube may lie CUBE_SINK_SLACK m
+# deeper than the JAX env's.
+CUBE_SHARE_SLACK, CUBE_SINK_SLACK = 0.01, 0.005
 
 
 def log(*a):
@@ -289,8 +311,7 @@ def count_ops(fn) -> int:
 
 
 def franka_layers(env, state) -> None:
-    """Ops and host ms (clock around each call, ending in a synchronize;
-    mean of 5 after a warm call) of the layers of one Franka step: the
+    """Ops and host ms (time_layers) of the layers of one Franka step: the
     control, phase A with the body cache reused (first substep) and with FK
     (second substep), and the refresh. Phase D is the rest."""
     st, params, actions = env.sim.stepper, env.sim.params, env.sim.actions
@@ -302,6 +323,12 @@ def franka_layers(env, state) -> None:
         "phase A with FK": lambda: st.group_velocities(state, actions, params, False),
         "refresh (FK)": lambda: st.refresh_body_state(state, params),
     }
+    time_layers(layers)
+
+
+def time_layers(layers) -> None:
+    """Print each layer's ops (count_ops) and host ms: the clock around 5
+    calls after a warm one, ending in a synchronize, over 5."""
     for name, fn in layers.items():
         ops = count_ops(fn)
         fn()
@@ -373,6 +400,125 @@ def franka_phase(kernels) -> None:
         f"{FRANKA_GOLDEN_EVERY} steps): max |err| of largest magnitude {worst:.3e}")
     if worst > GOLDEN_TOL:
         raise RuntimeError(f"franka departs from the stand-in golden: {worst:.3e} > {GOLDEN_TOL}")
+
+
+def cube_layers(env, ps) -> None:
+    """Ops and host ms (time_layers) of the layers of a franka_cube
+    step: the control, and of a substep phase A (body cache reused, then
+    with FK), phase B, phase C's inputs (current poses, link Jacobians,
+    A^-1), narrowphase, the solve's set-up (narrowphase included), one
+    Jacobi sweep (a substep runs `iters` of them, then a few ops of
+    read-back and contact force), phase D; and the refresh."""
+    stp, params = env.sim.stepper, env.sim.params
+    state = ps.sim
+    actions = env.control(ps)[0]
+    gd = stp.group_velocities(state, actions, params, True)
+    fd = stp.free_velocities(state, actions, params)
+    cur_bp, cur_bq, jac, a_inv = stp.contact_inputs(state, gd, fd)
+    c = stp.contact
+    solve_args = (cur_bp, cur_bq, (state.body_linvel, state.body_angvel), fd["v"], fd["w"],
+                  fd["m"], fd["I_w"], fd["com_w"], [g["qd_full"] for g in gd], jac, a_inv,
+                  params, stp.h)
+    s = c.prepare(*solve_args)
+    layers = {
+        "control (FSM, jacobian, mass matrix, OSC solves)": lambda: env.control(ps),
+        "phase A, body cache reused": lambda: stp.group_velocities(state, actions, params, True),
+        "phase A with FK": lambda: stp.group_velocities(state, actions, params, False),
+        "phase B (the cube)": lambda: stp.free_velocities(state, actions, params),
+        "phase C inputs (poses, link jacobians, A^-1)": lambda: stp.contact_inputs(state, gd, fd),
+        "narrowphase": lambda: c.narrowphase(cur_bp, cur_bq, params),
+        "solve set-up (narrowphase included)": lambda: c.prepare(*solve_args),
+        f"one Jacobi sweep (x{s.iters} a substep)": s.sweep,
+        "phase D": lambda: stp.integrate(state, gd, fd, params),
+        "refresh (FK)": lambda: stp.refresh_body_state(state, params),
+    }
+    time_layers(layers)
+
+
+def cube_phase(kernels) -> None:
+    """The franka_cube pick path at CUBE_ENVS envs under OSC: a timed run
+    with the hand-written kernels' counts read around it (the path has none,
+    so every count must stay 0), checks of its end state, a step with host
+    syncs made errors, per-layer ops and host ms, a profile, the 4-env
+    golden of both controllers, and the grip and lift shares."""
+    from test_isaacgym_tpu_torch.envs.franka import STANDIN_ROOT
+    from test_isaacgym_tpu_torch.envs.franka_cube import BOX_SIZE, TABLE_DIMS, FrankaCubeEnv
+
+    t = time.perf_counter()
+    env = FrankaCubeEnv(num_envs=CUBE_ENVS, controller="osc", device="cuda")
+    log(f"franka_cube: {CUBE_ENVS} envs built in {time.perf_counter() - t:.2f} s, "
+        f"{env.sim.stepper.contact.num_contacts} contact rows an env")
+    ps = env.init_state
+    env.rollout_fn(1)(ps)  # warm: allocator and library handles
+    one = env.rollout_fn(1)
+    log(f"franka_cube: {count_ops(lambda: one(ps))} non-view PyTorch ops a step")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one(ps)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("franka_cube: one step ran with host syncs made errors: none")
+
+    run = env.rollout_fn(CUBE_STEPS)
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t = time.perf_counter()
+    end, (gripped, box_z) = run(ps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.launches)
+    step_ms = wall / CUBE_STEPS * 1e3
+    log(f"franka_cube main path: {CUBE_STEPS} steps of {CUBE_ENVS} envs in {wall:.3f} s: "
+        f"{CUBE_ENVS * CUBE_STEPS / wall:.1f} env-steps/s, {step_ms:.4f} ms/step, "
+        f"sphere_world launches {launches.get('sphere_world', 0)}")
+    if any(launches.values()):
+        raise RuntimeError(f"the franka_cube path launched hand-written kernels: {launches}")
+    s = end.sim
+    for name, v in s._asdict().items():
+        if v is not None and v.is_floating_point() and not torch.isfinite(v).all():
+            raise RuntimeError(f"franka_cube state.{name} is not finite")
+    p = env.sim.params
+    lim = p.dof_has_limits
+    if ((lim & (s.dof_pos < p.dof_lower)) | (lim & (s.dof_pos > p.dof_upper))).any():
+        raise RuntimeError("franka_cube dof_pos left its joint limits")
+    bottom = s.root_pos[:, env.box_slot, 2] - 0.5 * BOX_SIZE
+    low = float(bottom.min())
+    sunk = int((bottom < TABLE_DIMS[2] - 0.01).sum())
+    log(f"franka_cube lowest cube bottom after {CUBE_STEPS} steps: {low:.6f} m (table top "
+        f"{TABLE_DIMS[2]}, JAX env {JAX_CUBE_BOTTOM:.6f}); {sunk} cubes more than 1 cm "
+        "into the table")
+    if not (low > JAX_CUBE_BOTTOM - CUBE_SINK_SLACK and low > 0.0):
+        raise RuntimeError(f"a cube sank deeper than the JAX env's: bottom {low:.6f} m")
+
+    g, z = gripped.cpu().numpy(), box_z.cpu().numpy()
+    lifted = g & (z > TABLE_DIMS[2] + 0.1)
+    grip, lift = float(g.any(0).mean()), float(lifted.any(0).mean())
+    log(f"franka_cube shares after {CUBE_STEPS} steps of {CUBE_ENVS} envs: grip {grip:.6f}, "
+        f"lift {lift:.6f} (JAX env: grip {JAX_GRIP_SHARE:.6f}, lift {JAX_LIFT_SHARE:.6f})")
+    if grip < JAX_GRIP_SHARE - CUBE_SHARE_SLACK or lift < JAX_LIFT_SHARE - CUBE_SHARE_SLACK:
+        raise RuntimeError(f"franka_cube grips or lifts less than the JAX env: {grip}, {lift}")
+
+    profile_steps(env.rollout_fn(CUBE_PROFILE_STEPS), end, step_ms, CUBE_PROFILE_STEPS)
+    cube_layers(env, end)
+
+    golden = np.load(os.path.join(STANDIN_ROOT, "franka_cube_standin.npz"))
+    for ctrl in ("ik", "osc"):
+        small = FrankaCubeEnv(num_envs=CUBE_GOLDEN_ENVS, controller=ctrl, device="cuda")
+        st, worst = small.init_state, 0.0
+        chunk = small.rollout_fn(CUBE_GOLDEN_EVERY)
+        for k in range(golden[f"{ctrl}_box_pos"].shape[0]):
+            got = {"box_pos": st.sim.root_pos[:, small.box_slot], "dof_pos": st.sim.dof_pos}
+            for key, value in got.items():
+                want = golden[f"{ctrl}_{key}"][k]
+                err = float(np.abs(value.cpu().numpy() - want).max())
+                worst = max(worst, err / max(float(np.abs(want).max()), 1.0))
+            if k + 1 < golden[f"{ctrl}_box_pos"].shape[0]:
+                st = chunk(st)[0]
+        log(f"franka_cube {ctrl} {CUBE_GOLDEN_ENVS} envs vs stand-in golden (box_pos, dof_pos "
+            f"every {CUBE_GOLDEN_EVERY} steps): max |err| of largest magnitude {worst:.3e}")
+        if worst > GOLDEN_TOL:
+            raise RuntimeError(f"franka_cube {ctrl} departs from the golden: {worst:.3e} > {GOLDEN_TOL}")
 
 
 def main() -> int:
@@ -488,6 +634,9 @@ def main() -> int:
 
     # ---- 5. the flagship Franka OSC path, with its own counts ----
     franka_phase(_kernels)
+
+    # ---- 6. the franka_cube pick path (the contact table), with its own counts ----
+    cube_phase(_kernels)
 
     log(json.dumps({"kernels": [{
         "name": "sphere_world",

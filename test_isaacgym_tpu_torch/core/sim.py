@@ -30,7 +30,17 @@ class Simulator:
             scene.env_origins, dtype=torch.float32, device=self.device
         )
         self.params = _to(params, self.device)
-        self.state = self.stepper.refresh_body_state(_to(state, self.device), self.params)
+        state = _to(state, self.device)
+        # size the persistent warm-start impulse rows to the contact table
+        # (opt-in: physx.warm_start_contacts)
+        C = self.stepper.contact.num_contacts
+        if C and scene.sim_params.physx.warm_start_contacts:
+            n = state.root_pos.shape[0]
+            state = state._replace(
+                warm_n=torch.zeros((n, C), dtype=torch.float32, device=self.device),
+                warm_t=torch.zeros((n, C, 3), dtype=torch.float32, device=self.device),
+            )
+        self.state = self.stepper.refresh_body_state(state, self.params)
         self.initial_state = self.state
         self.actions = zero_actions(
             scene.num_envs,

@@ -8,9 +8,11 @@ velocities before contact), phase C (the contact solve), phase D (limits and
 position integration) and the body-state refresh.
 
 Not ported yet, and raising NotImplementedError at construction: attractors,
-soft bodies, and a scene whose static contact table has rows (narrowphase
-and the table solve, articulation-link contact rows among them; only the
-sphere-world contact path is ported).
+soft bodies, and the contact kinds physics/contacts.py names (hulls,
+heightfields, SDF probes).
+
+Contact impulses carry across substeps, and across steps in
+`SimState.warm_n` / `warm_t` when `physx.warm_start_contacts` sized them.
 
 `rollout` is a Python loop: PyTorch runs eagerly, and each step launches its
 kernels on the current stream without waiting for them.
@@ -25,10 +27,10 @@ import torch
 from ..core.scene import Scene
 from ..core.state import Actions, PhysParams, SimState
 from ..math.quat import cross as _cross, quat_integrate, quat_rotate, quat_to_matrix
-from ..utils.linalg import spd_solve
+from ..utils.linalg import spd_inv, spd_solve
 from . import contacts as contacts_mod
 from . import dynamics
-from .kinematics import ArtTopo, fk, topo_from_group
+from .kinematics import ArtTopo, fk, jacobian as link_jacobian, topo_from_group
 
 DOF_MODE_NONE, DOF_MODE_POS, DOF_MODE_VEL, DOF_MODE_EFFORT = 0, 1, 2, 3
 
@@ -94,19 +96,10 @@ class Stepper:
             )
         self.free = scene.free_group
         self.static = scene.static_group
-        self.contact = contacts_mod.ContactSolver(scene)
-        if self.contact.any_link:
-            raise NotImplementedError(
-                "this scene has contact rows on articulation links: two-way "
-                "link contacts are not ported to the torch package yet "
-                "(ROADMAP.md Queue 1, item 7: contacts part 2)"
-            )
-        if self.contact.num_contacts:
-            raise NotImplementedError(
-                f"this scene has {self.contact.num_contacts} static contact rows: "
-                "narrowphase and the contact-table solve are not ported to the "
-                "torch package yet"
-            )
+        self.contact = contacts_mod.ContactSolver(scene, device=dev)
+        # groups whose links have contact rows: their Jacobians and inverse
+        # implicit operators feed the solve
+        self._group_has_rows = [len(ia) + len(ib) > 0 for ia, ib in self.contact.link_lists]
         sp = scene.sim_params
         self.dt = sp.dt
         self.substeps = max(1, sp.substeps)
@@ -133,10 +126,21 @@ class Stepper:
         # substep reuses it instead of re-running FK — with the final
         # refresh, 2 link sweeps per step instead of substeps+1.
         first = True
+        # CROSS-STEP warm starting: persistent per-row contact impulses ride
+        # in SimState (keyed by static contact row), so force chains (heavy
+        # stacks, pinch grasps) keep converging across steps instead of
+        # being rebuilt from zero; separated rows are masked to zero by the
+        # solver's `active` gate on re-entry. Within a step the impulses
+        # always carry from one substep to the next.
+        warm = (state.warm_n, state.warm_t) if state.warm_n is not None else None
         for _ in range(self.substeps):
-            state = self._substep(state, actions, params, reuse_body_state=first)
+            state, warm = self._substep(
+                state, actions, params, reuse_body_state=first, warm=warm
+            )
             first = False
         state = self.refresh_body_state(state, params)
+        if warm is not None and state.warm_n is not None:
+            state = state._replace(warm_n=warm[0], warm_t=warm[1])
         return state._replace(time=state.time + self.dt, steps=state.steps + 1)
 
     def _link_state_from_bodies(self, gi: _GroupIndex, state: SimState):
@@ -331,33 +335,71 @@ class Stepper:
         w1 = torch.clamp(w1, -mav, mav)
         return dict(p0=p0, q0=q0, v=v1, w=w1, m=m, I_w=I_w, com_w=com_w, com=com)
 
+    def contact_inputs(self, state: SimState, group_data, fd):
+        """Phase C's inputs besides the velocities: CURRENT body poses
+        (articulation links at this substep's FK, free roots at this
+        substep's entry, statics from the cache) and, for each group with
+        contact rows, its link Jacobians and inverse implicit operator
+        (None for the others). Orientations are built only for a contact
+        table (the sphere world reads positions only)."""
+        table = self.contact.num_contacts > 0
+        cur_bp, cur_bq = state.body_pos, state.body_quat
+        for gi, gd in zip(self.groups, group_data):
+            cur_bp = cur_bp.index_copy(1, gi.body_flat, self._real(gi, gd["pos"]))
+            if table:
+                cur_bq = cur_bq.index_copy(1, gi.body_flat, self._real(gi, gd["quat"]))
+        if fd is not None:
+            cur_bp = cur_bp.index_copy(1, self._fbody, fd["p0"])
+            if table:
+                cur_bq = cur_bq.index_copy(1, self._fbody, fd["q0"])
+        art_jac, art_Ainv = [], []
+        for gi, gd, rows in zip(self.groups, group_data, self._group_has_rows):
+            art_jac.append(link_jacobian(gi.topo, gd["pos"], gd["quat"]) if rows else None)
+            art_Ainv.append(spd_inv(gd["A_op"]) if rows else None)
+        return cur_bp, cur_bq, art_jac, art_Ainv
+
     def _substep(self, state: SimState, actions: Actions, params: PhysParams,
-                 reuse_body_state: bool = False) -> SimState:
+                 reuse_body_state: bool = False, warm=None):
         h = self.h
+        warm_out = warm
         # ---------- phase A: articulated groups — velocities (pre-contact) ----------
         group_data = self.group_velocities(state, actions, params, reuse_body_state)
 
         # ---------- phase B: free bodies — velocities (pre-contact) ----------
         fd = self.free_velocities(state, actions, params)
 
-        # ---------- phase C: contact solve ----------
-        # (enabled only with free bodies: a contact-table row raises at
-        # construction, and both fast paths are made of free bodies; an
-        # articulation's generalized velocity passes through unchanged)
+        # ---------- phase C: unified contact solve (free bodies + links) ----------
         if self.contact.enabled:
-            # CURRENT body positions: articulation links at this substep's
-            # FK, free roots at this substep's entry, statics from the cache
-            # (the sphere world reads positions only)
-            cur_bp = state.body_pos
-            for gi, gd in zip(self.groups, group_data):
-                cur_bp = cur_bp.index_copy(1, gi.body_flat, self._real(gi, gd["pos"]))
-            cur_bp = cur_bp.index_copy(1, self._fbody, fd["p0"])
-            fd["v"], fd["w"], cf = self.contact.solve(
-                cur_bp, fd["v"], fd["w"], fd["m"], fd["I_w"], params, h
+            cur_bp, cur_bq, art_jac, art_Ainv = self.contact_inputs(state, group_data, fd)
+            fv, fw, qd_fulls, cf, warm_out = self.contact.solve(
+                cur_bp,
+                cur_bq,
+                (state.body_linvel, state.body_angvel),
+                fd["v"] if fd is not None else None,
+                fd["w"] if fd is not None else None,
+                fd["m"] if fd is not None else None,
+                fd["I_w"] if fd is not None else None,
+                fd["com_w"] if fd is not None else None,
+                [gd["qd_full"] for gd in group_data],
+                art_jac,
+                art_Ainv,
+                params,
+                h,
+                warm=warm,
             )
             state = state._replace(contact_force=cf)
+            for gd, qd_full in zip(group_data, qd_fulls):
+                gd["qd_full"] = qd_full
+            if fd is not None:
+                fd["v"], fd["w"] = fv, fw
 
         # ---------- phase D: limits + position integration ----------
+        return self.integrate(state, group_data, fd, params), warm_out
+
+    def integrate(self, state: SimState, group_data, fd, params: PhysParams) -> SimState:
+        """Phase D: joint limits and position integration of the groups'
+        and free bodies' post-contact velocities."""
+        h = self.h
         root_pos, root_quat = state.root_pos, state.root_quat
         root_lin, root_ang = state.root_linvel, state.root_angvel
         dof_pos, dof_vel = state.dof_pos, state.dof_vel

@@ -162,15 +162,28 @@ def test_unported_paths_raise():
     from test_isaacgym_tpu_torch.core.sim import Simulator
     from test_isaacgym_tpu_torch.physics.step import Stepper
 
-    # a non-empty contact table (narrowphase is a later slice)
-    with pytest.raises(NotImplementedError):
-        Stepper(_prims_builder(PORT).finalize("cpu")[0], "cpu")
+    # contact kinds that are a later slice: a convex hull, a heightfield
+    prim, config, scene = _mods(PORT)
+    from test_isaacgym_tpu_torch.assets.types import GEOM_MESH, GeomSpec
+
+    hull = prim.create_box(0.2, 0.2, 0.2)
+    corners = np.array([[x, y, z] for x in (-0.1, 0.1) for y in (-0.1, 0.1) for z in (-0.1, 0.1)])
+    hull.links[0].geoms = [GeomSpec(GEOM_MESH, vertices=corners, faces=np.zeros((0, 3), np.int32))]
+    b = scene.SceneBuilder(config.SimParams())
+    b.add_ground(config.PlaneParams())
+    b.create_env((-1, -1, 0), (1, 1, 1), 1)
+    b.create_actor(0, hull, pos=(0, 0, 0.5))
+    with pytest.raises(NotImplementedError, match="hull"):
+        Stepper(b.finalize("cpu")[0], "cpu")
+    b = _prims_builder(PORT)
+    b.add_heightfield(np.zeros((8, 8), np.int16), 0.1, 0.01)
+    with pytest.raises(NotImplementedError, match="heightfield"):
+        Stepper(b.finalize("cpu")[0], "cpu")
     # the neighbor-list solve
     sim = Simulator(*_mixed_builder(PORT).finalize("cpu"), device="cpu")
     with pytest.raises(NotImplementedError):
         sim.step()
     # soft bodies
-    prim, config, scene = _mods(PORT)
     ball = prim.create_sphere(0.1)
     ball.links[0].fem = FemSpec(verts=np.zeros((4, 3)), tets=np.zeros((1, 4), np.int32))
     b = scene.SceneBuilder(config.SimParams())

@@ -10,9 +10,10 @@ by side; tolerance: the goldens' rule, 1e-4 * max(|ref|, 1):
     `dof_state` setter and the dof-target setters; plus `jacobian`,
     `jacobian_fn`, `body_jacobian_fn` and `mass_matrix` of the final state;
   * 64 free spheres on a ground beside a shape-free pendulum arm: the
-    sphere-world contact solve with an articulation group in the scene.
-What the port does not run yet raises NotImplementedError: articulation
-links with contact rows, and attractors.
+    sphere-world contact solve with an articulation group in the scene;
+  * a pendulum whose bob carries a sphere swinging into the ground: contact
+    rows on an articulation link (LINK vs STATIC).
+What the port does not run yet raises NotImplementedError: attractors.
 """
 import functools
 import importlib
@@ -145,18 +146,34 @@ def test_sphere_world_beside_an_arm_steps_like_jax():
 
 
 def test_link_contact_rows_raise():
-    """An arm whose links have collision shapes over a ground plane gives
-    contact rows on its links: not ported yet."""
+    """An arm whose link has a collision shape over a ground plane gives
+    contact rows on its link, which the port now steps like the JAX package
+    (the name is the test's from before link contacts were ported): the
+    bob, raised 0.8 rad, swings down through the lowest point, where its
+    sphere reaches 5 cm into the ground."""
     def build(pkg, b, config):
         t = importlib.import_module(f"{pkg}.assets.types")
         asset = pendulum_asset(pkg)
         asset.links[1].geoms.append(t.GeomSpec(t.GEOM_SPHERE, (0.1,), (0, 0, -1.0)))
         b.add_ground(config.PlaneParams())
         b.create_env((-1, -1, 0), (1, 1, 2), 1)
-        b.create_actor(0, asset, pos=(0, 0, 1.5), name="arm")
+        b.create_actor(0, asset, pos=(0, 0, 1.05), name="arm")
 
-    with pytest.raises(NotImplementedError, match="link"):
-        _sim(PORT, build)
+    jsim, sim = _sim(JAX, build), _sim(PORT, build)
+    assert sim.stepper.contact.any_link and jsim.stepper.contact.any_link
+    dof_state = np.array([[0.8, 0.0]], np.float32)
+    jsim.dof_state = dof_state
+    sim.dof_state = dof_state
+    touched = 0.0
+    for k in range(3):
+        for _ in range(20):
+            jsim.step()
+            sim.step()
+            touched = max(touched, float(np.abs(np.asarray(jsim.state.contact_force)).max()))
+        got, want = to_numpy(sim.state), jsim.state._asdict()
+        for f in FIELDS:
+            _check(got[f], want[f], f"{f} after {20 * (k + 1)} steps")
+    assert touched > 0  # the sphere met the ground
 
 
 def test_attractors_raise():
