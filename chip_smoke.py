@@ -20,7 +20,15 @@ the contact table's narrowphase and two-way Jacobi solve: plain PyTorch, its
 sphere-world count must stay 0), runs one of its steps with host syncs made
 errors, times its layers, profiles 10 of its steps, checks a 4-env run of
 each controller against franka_cube_standin.npz, reports its grip and lift
-shares beside the JAX env's, and prints:
+shares beside the JAX env's; then the paths with no kernel of their own,
+each with its counts read around its run: 4096 attractor-driven Pandas
+(examples/franka_attractor.py's moving target), the 4096-env UAV-car
+pursuit (and 16 envs against tests/goldens/uav_car.npz), 1080 boxes on the
+neighbor-list solve (sphere-world count 0), and 100 spheres beside 100
+boxes, where the sphere-world kernel runs beside that solve (its launches
+counted exactly, the kernel held against its plain version on that world);
+last the TIG_DEBUG checks (a planted NaN raises, verify_step_purity on the
+balls, Franka OSC and franka_cube steps). It prints:
   * the card's name and power limit (nvidia-smi);
   * per-phase numbers (build seconds, kernel and plain times, each launch's
     share of a solve and one sweep's cost, ball-steps/s, Franka env-steps/s
@@ -92,6 +100,26 @@ JAX_CUBE_BOTTOM = 0.376557
 # short by CUBE_SHARE_SLACK and the lowest cube may lie CUBE_SINK_SLACK m
 # deeper than the JAX env's.
 CUBE_SHARE_SLACK, CUBE_SINK_SLACK = 0.01, 0.005
+# the attractor path: examples/franka_attractor.py on the stand-in (fixed
+# base, gravity off), at the flagship's width. The example averages the
+# hand's distance from its moving target over the steps after
+# ATTRACTOR_SETTLE and bounds the mean by ATTRACTOR_BOUND m.
+ATTRACTOR_ENVS, ATTRACTOR_STEPS, ATTRACTOR_SETTLE = 4096, 240, 120
+ATTRACTOR_BOUND = 0.03
+ATTRACTOR_START = np.array([0.0, 0.0, 0.0, -1.2, 0.0, 1.5, 0.0, 0.02, 0.02], np.float32)
+# the UAV-car pursuit path; uav_car.npz holds 16 envs at steps 0, 15, ..., 300.
+# Bounds of tests/test_vecenv.py: each car within UAV_CIRCLE_SLACK m of its
+# 10 m loiter circle, its pixel within UAV_PIXEL_BOUND px of the image centre.
+UAV_ENVS, UAV_STEPS = 4096, 600
+UAV_GOLDEN_ENVS, UAV_GOLDEN_EVERY = 16, 15
+UAV_CIRCLE_SLACK, UAV_PIXEL_BOUND = 0.5, 2.0
+# the neighbor-list path: tests/test_neighbor_world.py's 1080-box world
+# (120 steps; its bounds: every box on the ground, z in (0.05, 0.3), |v| <
+# 0.1) and its mixed world of 100 spheres and 100 boxes (80 steps; z in
+# (0.05, 0.6)), whose spheres take the sphere-world kernel
+BOX_COUNT, BOX_STEPS, MIXED_STEPS = 1080, 120, 80
+# the device of every phase's envs ("cpu" only in a rehearsal of the phases on the CPU)
+DEV = "cuda"
 
 
 def log(*a):
@@ -348,32 +376,18 @@ def franka_phase(kernels) -> None:
     from test_isaacgym_tpu_torch.envs.franka import STANDIN_ROOT, FrankaOscEnv
 
     t = time.perf_counter()
-    env = FrankaOscEnv(num_envs=FRANKA_ENVS, device="cuda")
+    env = FrankaOscEnv(num_envs=FRANKA_ENVS, device=DEV)
     log(f"franka: {FRANKA_ENVS} envs built in {time.perf_counter() - t:.2f} s")
     env.rollout_fn(2)(env.sim.state)  # warm: allocator and library handles
     one = env.rollout_fn(1)
     log(f"franka: {count_ops(lambda: one(env.sim.state))} non-view PyTorch ops a step")
     run = env.rollout_fn(FRANKA_STEPS)
-    torch.cuda.synchronize()
-    kernels.launches.clear()
-    t = time.perf_counter()
-    s = run(env.sim.state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = dict(kernels.launches)
-    step_ms = wall / FRANKA_STEPS * 1e3
-    log(f"franka main path: {FRANKA_STEPS} steps of {FRANKA_ENVS} envs in {wall:.3f} s: "
-        f"{FRANKA_ENVS * FRANKA_STEPS / wall:.1f} env-steps/s, {step_ms:.4f} ms/step, "
-        f"sphere_world launches {launches.get('sphere_world', 0)}")
+    s, step_ms, launches = timed(lambda: run(env.sim.state), kernels, "franka", FRANKA_STEPS,
+                                 FRANKA_ENVS, "env")
     if any(launches.values()):
         raise RuntimeError(f"the Franka path launched hand-written kernels: {launches}")
-    for name, v in s._asdict().items():
-        if v is not None and v.is_floating_point() and not torch.isfinite(v).all():
-            raise RuntimeError(f"franka state.{name} is not finite")
-    p = env.sim.params
-    lim = p.dof_has_limits
-    if ((lim & (s.dof_pos < p.dof_lower)) | (lim & (s.dof_pos > p.dof_upper))).any():
-        raise RuntimeError("franka dof_pos left its joint limits")
+    assert_finite(s, "franka")
+    assert_in_limits(s, env.sim.params, "franka")
     env.sim.state = s
     track = float(np.median(env.tracking_error(FRANKA_STEPS)))
     log(f"franka median tracking error after {FRANKA_STEPS} steps: {track:.6f} m "
@@ -385,17 +399,11 @@ def franka_phase(kernels) -> None:
     franka_layers(env, s)
 
     golden = np.load(os.path.join(STANDIN_ROOT, "franka_osc_standin.npz"))
-    small = FrankaOscEnv(num_envs=FRANKA_GOLDEN_ENVS, device="cuda")
-    s, worst = small.sim.state, 0.0
-    chunk = small.rollout_fn(FRANKA_GOLDEN_EVERY)
-    for k in range(golden["hand_pos"].shape[0]):
-        got = {"hand_pos": s.body_pos[:, small.hand_body], "dof_pos": s.dof_pos}
-        for key, value in got.items():
-            want = golden[key][k]
-            err = float(np.abs(value.cpu().numpy() - want).max())
-            worst = max(worst, err / max(float(np.abs(want).max()), 1.0))
-        if k + 1 < golden["hand_pos"].shape[0]:
-            s = chunk(s)
+    small = FrankaOscEnv(num_envs=FRANKA_GOLDEN_ENVS, device=DEV)
+    worst = golden_err({k: golden[k] for k in ("hand_pos", "dof_pos")}, small.sim.state,
+                       lambda s: {"hand_pos": s.body_pos[:, small.hand_body],
+                                  "dof_pos": s.dof_pos},
+                       small.rollout_fn(FRANKA_GOLDEN_EVERY))
     log(f"franka {FRANKA_GOLDEN_ENVS} envs vs stand-in golden (hand_pos, dof_pos every "
         f"{FRANKA_GOLDEN_EVERY} steps): max |err| of largest magnitude {worst:.3e}")
     if worst > GOLDEN_TOL:
@@ -435,6 +443,396 @@ def cube_layers(env, ps) -> None:
     time_layers(layers)
 
 
+def assert_finite(state, what) -> None:
+    for name, v in state._asdict().items():
+        if v is not None and v.is_floating_point() and not torch.isfinite(v).all():
+            raise RuntimeError(f"{what} state.{name} is not finite")
+
+
+def assert_in_limits(state, params, what) -> None:
+    lim = params.dof_has_limits
+    if ((lim & (state.dof_pos < params.dof_lower)) | (lim & (state.dof_pos > params.dof_upper))).any():
+        raise RuntimeError(f"{what} dof_pos left its joint limits")
+
+
+def golden_err(golden, state, snap, advance) -> float:
+    """Max |err| / max(|want|, 1) of snap(state) (a dict of tensors) against
+    golden[key][k] for each of the golden's snapshots k, with
+    state = advance(state) between snapshots."""
+    worst, count = 0.0, len(next(iter(golden.values())))
+    for k in range(count):
+        for key, value in snap(state).items():
+            want = golden[key][k]
+            err = float(np.abs(value.cpu().numpy() - want).max())
+            worst = max(worst, err / max(float(np.abs(want).max()), 1.0))
+        if k + 1 < count:
+            state = advance(state)
+    return worst
+
+
+def assert_sync_free(fn, what) -> None:
+    """fn() (one step) with host syncs made errors."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"{what}: one step ran with host syncs made errors: none")
+
+
+def timed(run, kernels, what, steps, width, unit):
+    """run() (a loop of `steps` steps of `width` of `unit`, "env" or "body")
+    under the host clock, ending in a synchronize, with the hand-written
+    kernels' counts read around it. Returns (its result, ms/step, launches)."""
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.launches)
+    log(f"{what} main path: {steps} steps of {width} {unit} in {wall:.3f} s: "
+        f"{width * steps / wall:.1f} {unit}-steps/s, {wall / steps * 1e3:.4f} ms/step, "
+        f"sphere_world launches {launches.get('sphere_world', 0)}")
+    return out, wall / steps * 1e3, launches
+
+
+def device_ms(fn, reps=5):
+    """Device busy ms per call of fn() (torch.profiler, device-side events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3 if us else None
+
+
+def attractor_sim(num_envs):
+    """(sim, env body of the hand) of examples/franka_attractor.py on the
+    stand-in: each env's Panda at the example's start pose, an attractor
+    on its hand (stiffness 5e5, damping 5e3, all axes)."""
+    from test_isaacgym_tpu_torch.assets import load_urdf
+    from test_isaacgym_tpu_torch.core.config import SimParams
+    from test_isaacgym_tpu_torch.core.scene import SceneBuilder
+    from test_isaacgym_tpu_torch.core.sim import Simulator
+    from test_isaacgym_tpu_torch.envs.franka import FRANKA_URDF, STANDIN_ROOT
+
+    asset = load_urdf(STANDIN_ROOT, FRANKA_URDF, fix_base_link=True)
+    asset.disable_gravity = True
+    hand = asset.rigid_body_dict()["panda_hand"]
+    b = SceneBuilder(SimParams(dt=1 / 60, substeps=2))
+    n_row = max(int(np.sqrt(num_envs)), 1)
+    for e in range(num_envs):
+        b.create_env((-1, -1, 0), (1, 1, 2), n_row)
+        slot = b.create_actor(e, asset, name="franka", group=e, filter=1)
+        b.add_attractor(e, slot, hand, stiffness=5e5, damping=5e3)
+    sim = Simulator(*b.finalize(DEV), device=DEV)
+    sim.dof_state = np.stack([np.tile(ATTRACTOR_START, num_envs),
+                              np.zeros(9 * num_envs, np.float32)], -1)
+    return sim, sim.scene.find_actor("franka").body_start + hand
+
+
+def attractor_phase(kernels) -> None:
+    """The attractor path at ATTRACTOR_ENVS envs: the hand follows the
+    example's moving target (written into the actions every step from the
+    step count, on the device) for ATTRACTOR_STEPS steps."""
+    from test_isaacgym_tpu_torch.physics import dynamics
+
+    t = time.perf_counter()
+    sim, hand = attractor_sim(ATTRACTOR_ENVS)
+    log(f"attractor: {ATTRACTOR_ENVS} envs built in {time.perf_counter() - t:.2f} s")
+    stp, params, actions0 = sim.stepper, sim.params, sim.actions
+    dt = sim.scene.sim_params.dt
+    base_pos = sim.state.body_pos[:, hand]
+    base_quat = sim.state.body_quat[:, hand, None]
+
+    def step(state):
+        """One step toward the example's target at sim time steps * dt:
+        (state, target (N, 3))."""
+        tt = state.steps.to(torch.float32) * dt
+        off = torch.stack([torch.zeros_like(tt), 0.1 * torch.sin(1.5 * tt),
+                           0.1 * torch.cos(1.5 * tt) - 0.1])
+        target = base_pos + off
+        actions = actions0._replace(attractor_target_pos=target[:, None],
+                                    attractor_target_quat=base_quat)
+        return stp.step(state, actions, params), target
+
+    def run(state, steps):
+        err = torch.zeros(ATTRACTOR_ENVS, device=base_pos.device)
+        for k in range(steps):
+            state, target = step(state)
+            if k > ATTRACTOR_SETTLE:
+                err = err + torch.linalg.vector_norm(state.body_pos[:, hand] - target, dim=-1)
+        return state, err / max(steps - ATTRACTOR_SETTLE - 1, 1)
+
+    s0 = sim.state
+    step(s0)  # warm
+    log(f"attractor: {count_ops(lambda: step(s0))} non-view PyTorch ops a step")
+    assert_sync_free(lambda: step(s0), "attractor")
+    (s, err), step_ms, launches = timed(lambda: run(s0, ATTRACTOR_STEPS), kernels, "attractor",
+                                        ATTRACTOR_STEPS, ATTRACTOR_ENVS, "env")
+    if any(launches.values()):
+        raise RuntimeError(f"the attractor path launched hand-written kernels: {launches}")
+    assert_finite(s, "attractor")
+    assert_in_limits(s, params, "attractor")
+    worst = float(err.max())
+    log(f"attractor mean hand-to-target error over steps {ATTRACTOR_SETTLE + 1}-"
+        f"{ATTRACTOR_STEPS - 1}: worst env {worst:.6f} m, mean {float(err.mean()):.6f} m "
+        f"(bound {ATTRACTOR_BOUND})")
+    if not worst < ATTRACTOR_BOUND:
+        raise RuntimeError(f"an attractor env's mean error {worst:.6f} m >= {ATTRACTOR_BOUND}")
+
+    def run10(state):
+        for _ in range(10):
+            state = step(state)[0]
+        return state
+
+    profile_steps(run10, s, step_ms, 10)
+    gi, att = stp.groups[0], stp.attractors_by_group[0][0]
+    pos, quat, _, _ = stp._link_state_from_bodies(gi, s)
+    M = dynamics.mass_matrix(gi.topo, pos, quat, mass=stp._link_params(gi, params.body_mass, 0.0),
+                             com=stp._link_params(gi, params.body_com, 0.0),
+                             inertia=stp._link_params(gi, params.body_inertia, 0.0))
+    qd = s.dof_vel[:, gi.dof_idx]
+    time_layers({
+        "phase A, body cache reused (attractor included)":
+            lambda: stp.group_velocities(s, actions0, params, True),
+        "the attractor impulse (one attractor, one substep)":
+            lambda: stp._attractor_impulse(att, gi.topo, pos, quat, M, qd, actions0, params),
+    })
+
+
+def uav_phase(kernels) -> None:
+    """The UAV-car pursuit path at UAV_ENVS envs for UAV_STEPS steps, and
+    a 16-env run against tests/goldens/uav_car.npz."""
+    from test_isaacgym_tpu_torch.envs.uav_car import UavCarEnv
+
+    t = time.perf_counter()
+    env = UavCarEnv(num_envs=UAV_ENVS, device=DEV)
+    log(f"uav_car: {UAV_ENVS} envs built in {time.perf_counter() - t:.2f} s")
+    s0 = env.init_state
+    env.rollout(2)  # warm
+    log(f"uav_car: {count_ops(lambda: env.step_fn(s0))} non-view PyTorch ops a step")
+    assert_sync_free(lambda: env.step_fn(s0), "uav_car")
+    (final, (pixels, _)), step_ms, launches = timed(
+        lambda: env.rollout(UAV_STEPS), kernels, "uav_car", UAV_STEPS, UAV_ENVS, "env")
+    if any(launches.values()):
+        raise RuntimeError(f"the uav_car path launched hand-written kernels: {launches}")
+    assert_finite(final.sim, "uav_car")
+    if not torch.isfinite(final.cam_rot).all():
+        raise RuntimeError("uav_car cam_rot is not finite")
+    car = final.sim.root_pos[:, env.car_slot]
+    r = torch.linalg.vector_norm(car[:, :2] - env.target_w[:, :2], dim=1)
+    off_circle = float((r - env.car_radius).abs().max())
+    centre = torch.tensor([env.cam_width / 2, env.cam_height / 2], device=car.device)
+    pix_err = float(torch.linalg.vector_norm(env.car_pixel(final) - centre, dim=1).max())
+    log(f"uav_car after {UAV_STEPS} steps: cars at most {off_circle:.6f} m off their "
+        f"{env.car_radius} m circles (bound {UAV_CIRCLE_SLACK}), car pixels at most "
+        f"{pix_err:.6f} px from the centre (bound {UAV_PIXEL_BOUND})")
+    if not (off_circle < UAV_CIRCLE_SLACK and pix_err < UAV_PIXEL_BOUND):
+        raise RuntimeError("uav_car: a car left its circle or the image centre")
+    profile_steps(lambda st: env.rollout(10, st)[0], final, step_ms, 10)
+
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "tests", "goldens", "uav_car.npz"))
+    small = UavCarEnv(num_envs=UAV_GOLDEN_ENVS, device=DEV)
+    worst = golden_err({k: golden[k] for k in ("uav_pos", "car_pos", "uav_quat")},
+                       small.init_state,
+                       lambda st: {"uav_pos": st.sim.root_pos[:, small.uav_slot],
+                                   "car_pos": st.sim.root_pos[:, small.car_slot],
+                                   "uav_quat": st.sim.root_quat[:, small.uav_slot]},
+                       lambda st: small.rollout(UAV_GOLDEN_EVERY, st)[0])
+    log(f"uav_car {UAV_GOLDEN_ENVS} envs vs uav_car.npz (uav_pos, car_pos, uav_quat every "
+        f"{UAV_GOLDEN_EVERY} steps): max |err| of largest magnitude {worst:.3e}")
+    if worst > GOLDEN_TOL:
+        raise RuntimeError(f"uav_car departs from its golden: {worst:.3e} > {GOLDEN_TOL}")
+
+
+def box_sim(n_boxes, spheres=False):
+    """tests/test_neighbor_world.py's worlds: n_boxes boxes of half extent
+    0.1 m in one collision group on a ground (jittered grid, seed 3, dt
+    1/60, 2 substeps, 4 position iterations), or with spheres=True its mixed
+    world of 100 spheres (r = 0.1 m) and 100 boxes (seed 0)."""
+    from test_isaacgym_tpu_torch.assets.primitives import create_box, create_sphere
+    from test_isaacgym_tpu_torch.core.config import PlaneParams, SimParams
+    from test_isaacgym_tpu_torch.core.scene import SceneBuilder
+    from test_isaacgym_tpu_torch.core.sim import Simulator
+
+    sp = SimParams(dt=1 / 60, substeps=2, gravity=(0.0, 0.0, -9.8))
+    box = create_box(0.2, 0.2, 0.2, density=500.0)
+    b = SceneBuilder(sp)
+    b.add_ground(PlaneParams())
+    b.create_env((-50, -50, 0), (50, 50, 10), 1)
+    if spheres:
+        ball = create_sphere(0.1, density=500.0)
+        rng = np.random.RandomState(0)
+        for i in range(200):
+            gx, gy = divmod(i, 15)
+            b.create_actor(0, box if i % 2 else ball,
+                           pos=(gx * 0.35, gy * 0.35, 0.12 + rng.uniform(0, 0.3)),
+                           name=f"o{i}", group=-1, filter=0)
+    else:
+        sp.physx.num_position_iterations = 4
+        rng = np.random.RandomState(3)
+        side = int(np.ceil(np.sqrt(n_boxes)))
+        for i in range(n_boxes):
+            gy, gx = divmod(i, side)
+            jitter = rng.uniform(-0.01, 0.01, 2)
+            b.create_actor(0, box, pos=(gx * 0.25 + jitter[0], gy * 0.25 + jitter[1], 0.102),
+                           name=f"box{i}", group=-1, filter=0)
+    return Simulator(*b.finalize(DEV), device=DEV)
+
+
+def neighbor_solve_args(sim, state):
+    """The arguments of the neighbor-world solve of the first substep of a
+    step from `state`, caught as the step makes them."""
+    from test_isaacgym_tpu_torch.ops import neighbor_world as nw
+
+    caught, solve = [], nw.solve
+
+    def catch(*args, **kw):
+        caught.append((args, kw))
+        return solve(*args, **kw)
+
+    nw.solve = catch
+    try:
+        sim.stepper.step(state, sim.actions, sim.params)
+    finally:
+        nw.solve = solve
+    return caught[0]
+
+
+def box_phase(kernels) -> None:
+    """The 1080-box world on the neighbor-list path: BOX_STEPS steps, twice
+    from the same state (the solve's scatter-adds use atomics), a profile
+    and the solve's device time."""
+    from test_isaacgym_tpu_torch.ops import neighbor_world as nw
+
+    sim = box_sim(BOX_COUNT)
+    stp = sim.stepper
+    c = stp.contact
+    if c.neighbor_world is None or c.sphere_world is not None or c.num_contacts:
+        raise RuntimeError("the box world does not take the neighbor-list path alone")
+    spec = c.neighbor_world
+    log(f"box{BOX_COUNT}: {len(spec.shape_idx)} boxes, K = {spec.k_neighbors}, "
+        f"{len(spec.shape_idx) * spec.k_neighbors * nw.MANIFOLD + 8 * len(spec.shape_idx)} "
+        f"contact rows a solve, {stp.substeps} solves a step")
+
+    def run(state, steps):
+        return stp.rollout(state, sim.actions, sim.params, steps)
+
+    s0 = sim.state
+    run(s0, 1)  # warm
+    log(f"box{BOX_COUNT}: {count_ops(lambda: run(s0, 1))} non-view PyTorch ops a step")
+    assert_sync_free(lambda: run(s0, 1), f"box{BOX_COUNT}")
+    s, step_ms, launches = timed(lambda: run(s0, BOX_STEPS), kernels, f"box{BOX_COUNT}",
+                                 BOX_STEPS, BOX_COUNT, "body")
+    if launches.get("sphere_world", 0):
+        raise RuntimeError(f"the box world launched the sphere-world kernel: {launches}")
+    assert_finite(s, f"box{BOX_COUNT}")
+    z = s.root_pos[0, :, 2]
+    vmax = float(s.root_linvel.abs().max())
+    log(f"box{BOX_COUNT} after {BOX_STEPS} steps: z in [{float(z.min()):.4f}, "
+        f"{float(z.max()):.4f}], max |v| {vmax:.6f}")
+    if not (float(z.min()) > 0.05 and float(z.max()) < 0.3 and vmax < 0.1):
+        raise RuntimeError(f"the {BOX_COUNT}-box world did not settle on the ground")
+    again = run(s0, BOX_STEPS)
+    diff = max(float((a - b).abs().max()) for a, b in zip(s, again)
+               if a is not None and a.is_floating_point() and a.numel())
+    log(f"box{BOX_COUNT}: two runs of {BOX_STEPS} steps from one state: max |difference| "
+        f"{diff:.3e} (the solve's scatter-adds use atomics, whose order may vary)")
+    profile_steps(lambda st: run(st, 10), s, step_ms, 10)
+    args, kw = neighbor_solve_args(sim, s)
+    dev_ms = device_ms(lambda: nw.solve(*args, **kw))
+    log(f"box{BOX_COUNT} neighbor-world solve: {count_ops(lambda: nw.solve(*args, **kw))} ops, "
+        f"device {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, "
+        f"host clock {time_ms(lambda: nw.solve(*args, **kw), reps=5, warmup=1):.4f} ms a solve")
+
+
+def mixed_phase(kernels, sw) -> float:
+    """The mixed world of 100 spheres and 100 boxes: the sphere-world
+    kernel beside the neighbor-list solve, MIXED_STEPS steps with the
+    kernel's launches counted, and the kernel held against its plain
+    version on this world's inputs. Returns that max |err|."""
+    sim = box_sim(0, spheres=True)
+    stp = sim.stepper
+    c = stp.contact
+    if c.neighbor_world is None or c.sphere_world is None or c.neighbor_world.ground_spheres:
+        raise RuntimeError("the mixed world does not take both dense paths")
+    if c.num_contacts:
+        raise RuntimeError(f"the mixed world left {c.num_contacts} rows in the static table")
+    log(f"mixed200: {len(c.sphere_world.shape_idx)} spheres on the sphere-world path, "
+        f"{len(c.neighbor_world.shape_idx)} bodies on the neighbor-list path, static table empty")
+
+    def run(state, steps):
+        return stp.rollout(state, sim.actions, sim.params, steps)
+
+    s0 = sim.state
+    run(s0, 1)  # warm
+    log(f"mixed200: {count_ops(lambda: run(s0, 1))} non-view PyTorch ops a step")
+    assert_sync_free(lambda: run(s0, 1), "mixed200")
+    want = sw.LAUNCHES_PER_SOLVE * stp.substeps * MIXED_STEPS
+    s, step_ms, launches = timed(lambda: run(s0, MIXED_STEPS), kernels, "mixed200",
+                                 MIXED_STEPS, 200, "body")
+    log(f"mixed200: sphere_world launches {launches.get('sphere_world', 0)}, want "
+        f"{sw.LAUNCHES_PER_SOLVE} a solve x {stp.substeps} solves a step x {MIXED_STEPS} "
+        f"steps = {want}")
+    if launches.get("sphere_world", 0) != want:
+        raise RuntimeError(f"the mixed world launched the kernel {launches} times, want {want}")
+    assert_finite(s, "mixed200")
+    z = s.root_pos[0, :, 2]
+    log(f"mixed200 after {MIXED_STEPS} steps: z in [{float(z.min()):.4f}, {float(z.max()):.4f}]")
+    if not (float(z.min()) > 0.05 and float(z.max()) < 0.6):
+        raise RuntimeError("the mixed world sank or blew up")
+    profile_steps(lambda st: run(st, 10), s, step_ms, 10)
+    fd = stp.free_velocities(s, sim.actions, sim.params)
+    args = c._sphere_world_inputs(s.body_pos, fd["v"], fd["w"], fd["m"], fd["I_w"],
+                                  sim.params, stp.h)
+    return check_solve(sw, args, f"mixed200 F={args[1].shape[1]} after {MIXED_STEPS} steps")
+
+
+def debug_phase() -> None:
+    """TIG_DEBUG=1 for this phase only: a NaN planted in one env's root
+    velocity makes a step raise FloatingPointError; a Franka OSC step under
+    the flag passes; verify_step_purity passes on the balls, Franka OSC and
+    franka_cube steps."""
+    from test_isaacgym_tpu_torch.envs.balls import BallsEnv
+    from test_isaacgym_tpu_torch.envs.franka import FrankaOscEnv
+    from test_isaacgym_tpu_torch.envs.franka_cube import FrankaCubeEnv
+    from test_isaacgym_tpu_torch.utils import debug
+
+    os.environ["TIG_DEBUG"] = "1"
+    try:
+        balls = BallsEnv(pyramids=4, device=DEV).sim
+        vel = balls.state.root_linvel.clone()
+        vel[0, 7, 2] = float("nan")
+        try:
+            balls.stepper.step(balls.state._replace(root_linvel=vel), balls.actions, balls.params)
+        except FloatingPointError as e:
+            log(f"debug: a NaN in one root velocity raised FloatingPointError: {e}")
+        else:
+            raise RuntimeError("TIG_DEBUG=1 let a NaN in the state through a step")
+        debug.verify_step_purity(balls.stepper, balls.state, balls.actions, balls.params)
+        franka = FrankaOscEnv(num_envs=8, device=DEV)
+        assert_finite(franka.rollout_fn(1)(franka.sim.state), "debug franka")
+        debug.verify_step_purity(franka.sim.stepper, franka.sim.state, franka.sim.actions,
+                                 franka.sim.params)
+        cube = FrankaCubeEnv(num_envs=4, device=DEV)
+        debug.verify_step_purity(cube.sim.stepper, cube.sim.state,
+                                 cube.control(cube.init_state)[0], cube.sim.params)
+    finally:
+        del os.environ["TIG_DEBUG"]
+    log("debug: a Franka OSC step under TIG_DEBUG=1 passed; verify_step_purity passed on "
+        "the balls, Franka OSC and franka_cube steps")
+
+
 def cube_phase(kernels) -> None:
     """The franka_cube pick path at CUBE_ENVS envs under OSC: a timed run
     with the hand-written kernels' counts read around it (the path has none,
@@ -445,43 +843,23 @@ def cube_phase(kernels) -> None:
     from test_isaacgym_tpu_torch.envs.franka_cube import BOX_SIZE, TABLE_DIMS, FrankaCubeEnv
 
     t = time.perf_counter()
-    env = FrankaCubeEnv(num_envs=CUBE_ENVS, controller="osc", device="cuda")
+    env = FrankaCubeEnv(num_envs=CUBE_ENVS, controller="osc", device=DEV)
     log(f"franka_cube: {CUBE_ENVS} envs built in {time.perf_counter() - t:.2f} s, "
         f"{env.sim.stepper.contact.num_contacts} contact rows an env")
     ps = env.init_state
     env.rollout_fn(1)(ps)  # warm: allocator and library handles
     one = env.rollout_fn(1)
     log(f"franka_cube: {count_ops(lambda: one(ps))} non-view PyTorch ops a step")
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        one(ps)
-        torch.cuda.synchronize()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    log("franka_cube: one step ran with host syncs made errors: none")
+    assert_sync_free(lambda: one(ps), "franka_cube")
 
     run = env.rollout_fn(CUBE_STEPS)
-    torch.cuda.synchronize()
-    kernels.launches.clear()
-    t = time.perf_counter()
-    end, (gripped, box_z) = run(ps)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = dict(kernels.launches)
-    step_ms = wall / CUBE_STEPS * 1e3
-    log(f"franka_cube main path: {CUBE_STEPS} steps of {CUBE_ENVS} envs in {wall:.3f} s: "
-        f"{CUBE_ENVS * CUBE_STEPS / wall:.1f} env-steps/s, {step_ms:.4f} ms/step, "
-        f"sphere_world launches {launches.get('sphere_world', 0)}")
+    (end, (gripped, box_z)), step_ms, launches = timed(lambda: run(ps), kernels, "franka_cube",
+                                                       CUBE_STEPS, CUBE_ENVS, "env")
     if any(launches.values()):
         raise RuntimeError(f"the franka_cube path launched hand-written kernels: {launches}")
     s = end.sim
-    for name, v in s._asdict().items():
-        if v is not None and v.is_floating_point() and not torch.isfinite(v).all():
-            raise RuntimeError(f"franka_cube state.{name} is not finite")
-    p = env.sim.params
-    lim = p.dof_has_limits
-    if ((lim & (s.dof_pos < p.dof_lower)) | (lim & (s.dof_pos > p.dof_upper))).any():
-        raise RuntimeError("franka_cube dof_pos left its joint limits")
+    assert_finite(s, "franka_cube")
+    assert_in_limits(s, env.sim.params, "franka_cube")
     bottom = s.root_pos[:, env.box_slot, 2] - 0.5 * BOX_SIZE
     low = float(bottom.min())
     sunk = int((bottom < TABLE_DIMS[2] - 0.01).sum())
@@ -504,17 +882,13 @@ def cube_phase(kernels) -> None:
 
     golden = np.load(os.path.join(STANDIN_ROOT, "franka_cube_standin.npz"))
     for ctrl in ("ik", "osc"):
-        small = FrankaCubeEnv(num_envs=CUBE_GOLDEN_ENVS, controller=ctrl, device="cuda")
-        st, worst = small.init_state, 0.0
+        small = FrankaCubeEnv(num_envs=CUBE_GOLDEN_ENVS, controller=ctrl, device=DEV)
         chunk = small.rollout_fn(CUBE_GOLDEN_EVERY)
-        for k in range(golden[f"{ctrl}_box_pos"].shape[0]):
-            got = {"box_pos": st.sim.root_pos[:, small.box_slot], "dof_pos": st.sim.dof_pos}
-            for key, value in got.items():
-                want = golden[f"{ctrl}_{key}"][k]
-                err = float(np.abs(value.cpu().numpy() - want).max())
-                worst = max(worst, err / max(float(np.abs(want).max()), 1.0))
-            if k + 1 < golden[f"{ctrl}_box_pos"].shape[0]:
-                st = chunk(st)[0]
+        worst = golden_err({k: golden[f"{ctrl}_{k}"] for k in ("box_pos", "dof_pos")},
+                           small.init_state,
+                           lambda st: {"box_pos": st.sim.root_pos[:, small.box_slot],
+                                       "dof_pos": st.sim.dof_pos},
+                           lambda st: chunk(st)[0])
         log(f"franka_cube {ctrl} {CUBE_GOLDEN_ENVS} envs vs stand-in golden (box_pos, dof_pos "
             f"every {CUBE_GOLDEN_EVERY} steps): max |err| of largest magnitude {worst:.3e}")
         if worst > GOLDEN_TOL:
@@ -591,22 +965,11 @@ def main() -> int:
     # ---- 3. the main path: 1080 balls, STEPS steps, counts around it only ----
     env = BallsEnv(pyramids=36, device="cuda")
     run = env.rollout_fn(STEPS)
-    torch.cuda.synchronize()
-    _kernels.launches.clear()
-    t = time.perf_counter()
-    s = run(env.sim.state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = dict(_kernels.launches)
-    n_balls = env.balls_per_world
-    log(f"main path: {STEPS} steps of {n_balls} balls in {wall:.3f} s: "
-        f"{n_balls * STEPS / wall:.1f} ball-steps/s, {wall / STEPS * 1e3:.4f} ms/step, "
-        f"launches {launches}")
+    s, step_ms, launches = timed(lambda: run(env.sim.state), _kernels, "balls", STEPS,
+                                 env.balls_per_world, "ball")
     if launches.get("sphere_world", 0) != STEPS * per_solve:
         raise RuntimeError(f"sphere_world launched {launches} times, want {STEPS * per_solve}")
-    for name, v in s._asdict().items():
-        if v is not None and v.is_floating_point() and not torch.isfinite(v).all():
-            raise RuntimeError(f"state.{name} is not finite")
+    assert_finite(s, "balls")
     z = s.root_pos[0, :, 2]
     zmin, zmax = float(z.min()), float(z.max())
     fz = float(s.contact_force[0, :, 2].max())
@@ -614,20 +977,14 @@ def main() -> int:
     if not (zmin > 0.15 and zmax < 3.0 and fz > 0):
         raise RuntimeError("the 1080-ball world sank, exploded or lost ground support")
 
-    profile_steps(env.rollout_fn(PROFILE_STEPS), s, wall / STEPS * 1e3)
+    profile_steps(env.rollout_fn(PROFILE_STEPS), s, step_ms)
 
     # ---- 4. right answers: the 120-ball drop against the committed golden ----
     golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "tests", "goldens", "balls_drop.npz"))["pos"]
     small = BallsEnv(pyramids=4, device="cuda")
-    s, worst = small.sim.state, 0.0
-    step10 = small.rollout_fn(10)
-    for k in range(golden.shape[0]):
-        want = golden[k]
-        err = float(np.abs(s.root_pos[0].cpu().numpy() - want).max())
-        worst = max(worst, err / max(float(np.abs(want).max()), 1.0))
-        if k + 1 < golden.shape[0]:
-            s = step10(s)
+    worst = golden_err({"pos": golden}, small.sim.state, lambda s: {"pos": s.root_pos[0]},
+                       small.rollout_fn(10))
     log(f"120-ball drop vs golden: max |err| of largest magnitude {worst:.3e}")
     if worst > GOLDEN_TOL:
         raise RuntimeError(f"120-ball drop departs from the golden: {worst:.3e} > {GOLDEN_TOL}")
@@ -637,6 +994,16 @@ def main() -> int:
 
     # ---- 6. the franka_cube pick path (the contact table), with its own counts ----
     cube_phase(_kernels)
+
+    # ---- 7. attractors, the UAV-car pursuit, the neighbor-list worlds (the
+    # mixed one beside the sphere-world kernel), each with its own counts,
+    # and the TIG_DEBUG checks ----
+    attractor_phase(_kernels)
+    uav_phase(_kernels)
+    box_phase(_kernels)
+    err_mixed = mixed_phase(_kernels, sw)
+    log(f"sphere_world vs plain on the mixed world: max |err| {err_mixed:.3e}")
+    debug_phase()
 
     log(json.dumps({"kernels": [{
         "name": "sphere_world",

@@ -49,6 +49,16 @@ class Simulator:
             num_attractors=len(scene.attractors),
             device=self.device,
         )
+        if scene.attractors:
+            # every attractor on, aimed at its initial target
+            ai = scene.attractor_init
+            self.actions = self.actions._replace(
+                attractor_target_pos=self._tensor(ai["target_pos"]),
+                attractor_target_quat=self._tensor(ai["target_quat"]),
+                attractor_enabled=torch.ones(
+                    ai["stiffness"].shape, dtype=torch.bool, device=self.device
+                ),
+            )
 
     # -- stepping -----------------------------------------------------------
     def step(self):

@@ -12,11 +12,12 @@ Port of test_isaacgym_tpu/physics/contacts.py:
     capsule-capsule, capsule-box; the box-box face-SAT manifold and the
     deepest edge-edge pair;
   * `ContactSolver.solve` runs the dense sphere-world fast path
-    (ops/sphere_world.py), then the relaxed-Jacobi solve of the table over
-    FREE, LINK and STATIC sides with cross-step warm start.
+    (ops/sphere_world.py), the neighbor-list solve of large mixed
+    box/sphere worlds (ops/neighbor_world.py), then the relaxed-Jacobi
+    solve of the table over FREE, LINK and STATIC sides with cross-step
+    warm start.
 Convex hulls and the heightfield (ROADMAP.md Queue 1, item 7), SDF probes
-(item 10) raise NotImplementedError at construction; the neighbor-list
-solve (item 6) raises in `solve`.
+(item 10) raise NotImplementedError at construction.
 
 Each contact side is one of
   FREE   — free rigid body: responds via (1/m, I^-1) impulses,
@@ -60,6 +61,7 @@ from ..core.scene import (
 )
 from ..math.quat import cross, quat_conjugate, quat_mul, quat_rotate, quat_to_matrix
 from ..math.spatial import skew
+from ..utils import debug as _debug
 from ..utils.linalg import spd_inv
 
 _BOX_CORNERS = np.array(
@@ -135,6 +137,7 @@ class ContactSolver:
         self.scene = scene
         self.enabled = False
         self._sw_dev = None  # sphere_world spec, index tensors on one device
+        self._nw_dev = None  # neighbor_world spec, index tensors on one device
         self._dev = None  # (device, _Tables) of the contact table
         sh = scene.shapes
 
@@ -499,6 +502,50 @@ class ContactSolver:
             h, iters, px.contact_offset, slop, px.bounce_threshold_velocity,
         )
 
+    def _neighbor_world_on(self, dev):
+        """(spec with its device tensors, free, shape, body index tensors)
+        of the neighbor world on `dev`, made once per device."""
+        if self._nw_dev is None or self._nw_dev[0] != dev:
+            spec = self.neighbor_world
+            idx = [torch.as_tensor(a, dtype=torch.long, device=dev)
+                   for a in (spec.free_idx, spec.shape_idx, spec.body_slot)]
+            self._nw_dev = (dev, spec.to(dev), *idx)
+        return self._nw_dev[1:]
+
+    def _solve_neighbor_world(self, body_pos, body_quat, free_v, free_w, free_m, free_I_w,
+                              params, h, cf_base):
+        """Neighbor-list solve of the large mixed free-body set
+        (ops/neighbor_world.py). Runs after the sphere-world solve and
+        before the table solve; they share velocities in that order."""
+        from ..ops import neighbor_world as _nw
+
+        spec, fidx, sidx, bidx = self._neighbor_world_on(body_pos.device)
+        px = self.scene.sim_params.physx
+        iters = max(6, 2 * px.num_position_iterations) + px.num_velocity_iterations
+        slop = px.rest_offset + px.contact_slop
+        inv_I = spd_inv(free_I_w[:, fidx])
+        # fold the local shape offset/rotation into the pose fed to the
+        # solver: it sees SHAPE centers and center velocities; single-geom
+        # bodies have com == center, so the inertia arms stay exact. Offsets
+        # are the runtime shape_pos, so randomization shows up.
+        bp = body_pos[:, bidx]
+        bq = body_quat[:, bidx]
+        arm = quat_rotate(bq, params.shape_pos[:, sidx])
+        center = bp + arm
+        sq = quat_mul(bq, spec.local_quat[None])
+        w0 = free_w[:, fidx]
+        vc = free_v[:, fidx] + cross(w0, arm)
+        v1c, w1, cf_s = _nw.solve(
+            spec, center, sq, vc, w0, params.shape_size[:, sidx], 1.0 / free_m[:, fidx],
+            inv_I, params.shape_friction[:, sidx], params.shape_restitution[:, sidx],
+            h, iters, px.contact_offset, slop, px.bounce_threshold_velocity,
+            max_depen=px.max_depenetration_velocity,
+        )
+        v1 = v1c - cross(w1, arm)
+        free_v = free_v.index_copy(1, fidx, v1)
+        free_w = free_w.index_copy(1, fidx, w1)
+        return free_v, free_w, cf_base.index_add(1, bidx, cf_s)
+
     # ------------------------------------------------------------------
     def narrowphase(self, body_pos, body_quat, params):
         """(point, normal(b->a), depth, active) for every candidate contact,
@@ -620,6 +667,9 @@ class ContactSolver:
         point = torch.cat([p[0] for p in parts], 1)[:, t.inv]
         normal = torch.cat([p[1] for p in parts], 1)[:, t.inv]
         depth = torch.cat([p[2] for p in parts], 1)[:, t.inv]
+        if _debug.enabled():  # TIG_DEBUG invariants
+            _debug.assert_contact_tables(point, normal, depth, body_pos.shape[0],
+                                         self.num_contacts)
         active = depth > -self.scene.sim_params.physx.contact_offset
         return point, normal, depth, active
 
@@ -671,10 +721,9 @@ class ContactSolver:
             free_v = free_v.index_copy(1, fidx, v1)
             free_w = free_w.index_copy(1, fidx, w1)
             cf = cf.index_add(1, bidx, cf_s)
-        if self.neighbor_world is not None:
-            raise NotImplementedError(
-                "the neighbor-list contact solve (ops/neighbor_world.py) is "
-                "not ported to the torch package yet (ROADMAP.md Queue 1, item 6)"
+        if self.neighbor_world is not None and free_m is not None:
+            free_v, free_w, cf = self._solve_neighbor_world(
+                body_pos, body_quat, free_v, free_w, free_m, free_I_w, params, h, cf
             )
         if self.num_contacts == 0:
             return free_v, free_w, list(art_qd), cf, None

@@ -5,11 +5,16 @@ Port of test_isaacgym_tpu/physics/step.py as plain functions of tensors:
 with all substeps: phase A (articulated groups: drives with implicit PD,
 external link forces, forward dynamics, joint friction), phase B (free-body
 velocities before contact), phase C (the contact solve), phase D (limits and
-position integration) and the body-state refresh.
+position integration) and the body-state refresh. Attractors on
+fixed-base articulations add their implicit spring-damper impulses in
+phase A.
 
-Not ported yet, and raising NotImplementedError at construction: attractors,
-soft bodies, and the contact kinds physics/contacts.py names (hulls,
+Not ported yet, and raising NotImplementedError at construction: soft
+bodies, and the contact kinds physics/contacts.py names (hulls,
 heightfields, SDF probes).
+
+With TIG_DEBUG=1 (utils/debug.py) every substep's state is checked for
+non-finite values, a host sync per substep that happens only then.
 
 Contact impulses carry across substeps, and across steps in
 `SimState.warm_n` / `warm_t` when `physx.warm_start_contacts` sized them.
@@ -26,11 +31,20 @@ import torch
 
 from ..core.scene import Scene
 from ..core.state import Actions, PhysParams, SimState
-from ..math.quat import cross as _cross, quat_integrate, quat_rotate, quat_to_matrix
+from ..math.quat import (
+    cross as _cross,
+    orientation_error,
+    quat_integrate,
+    quat_mul,
+    quat_rotate,
+    quat_to_matrix,
+)
+from ..math.spatial import skew
+from ..utils import debug as _debug
 from ..utils.linalg import spd_inv, spd_solve
 from . import contacts as contacts_mod
 from . import dynamics
-from .kinematics import ArtTopo, fk, jacobian as link_jacobian, topo_from_group
+from .kinematics import ArtTopo, body_jacobian, fk, jacobian as link_jacobian, topo_from_group
 
 DOF_MODE_NONE, DOF_MODE_POS, DOF_MODE_VEL, DOF_MODE_EFFORT = 0, 1, 2, 3
 
@@ -50,13 +64,21 @@ class _GroupIndex(NamedTuple):
     all_real: bool  # every sim link is a real body (no spherical-joint expansion)
 
 
+class _Attractor(NamedTuple):
+    """One attractor resolved to its group copy and sim link, with its
+    constants on the device."""
+
+    t: int  # attractor index (the T axis of Actions / PhysParams)
+    copy: int  # copy within the group
+    copy_idx: torch.Tensor  # (1,) the same, for index_add
+    link: int  # sim link within the group
+    offset_pos: torch.Tensor  # (3,) attachment offset in the link frame
+    offset_quat: torch.Tensor  # (4,)
+    mask6: torch.Tensor  # (6,) f32 axes [x, y, z, swing1, swing2, twist]
+
+
 class Stepper:
     def __init__(self, scene: Scene, device="cuda"):
-        if scene.attractors:
-            raise NotImplementedError(
-                "attractors are not ported to the torch package yet "
-                "(ROADMAP.md Queue 1, item 4: a sub-slice of their own)"
-            )
         if scene.soft is not None:
             raise NotImplementedError(
                 "soft bodies are not ported to the torch package yet "
@@ -73,11 +95,13 @@ class Stepper:
             return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
 
         self.groups: List[_GroupIndex] = []
+        body_idxs = []  # (K, L_real) env body of each real link, per group
         for g in scene.art_groups:
             Dg = g.num_dofs
             dof_idx = g.dof_start[:, None] + np.arange(Dg)[None, :]
             real_links = np.array([i for i, b in enumerate(g.body_of_link) if b >= 0])
             body_idx = g.body_start[:, None] + g.body_of_link[None, real_links]
+            body_idxs.append((body_idx, real_links))
             link_body = np.where(g.body_of_link >= 0, g.body_of_link, 0)
             link_body_idx = g.body_start[:, None] + link_body[None, :]
             link_is_real = np.asarray(g.body_of_link >= 0)
@@ -96,6 +120,35 @@ class Stepper:
             )
         self.free = scene.free_group
         self.static = scene.static_group
+        # attractors resolved to (group, copy, sim link): fixed-base
+        # articulations only (the reference's usage: franka/kuka arms,
+        # its examples/franka_attractor.py, kuka_bin.py:181-273)
+        self.attractors_by_group: List[List[_Attractor]] = [[] for _ in self.groups]
+        for t, a in enumerate(scene.attractors):
+            placed = False
+            for g_i, (gi, (body_idx, real_links)) in enumerate(zip(self.groups, body_idxs)):
+                hits = np.argwhere(body_idx == a.body)
+                if len(hits):
+                    copy, real_i = hits[0]
+                    if not gi.topo.fixed_base:
+                        raise NotImplementedError(
+                            "attractors on floating-base articulations"
+                        )
+                    mask6 = [float(bool(a.axes & (1 << k))) for k in range(6)]
+                    self.attractors_by_group[g_i].append(_Attractor(
+                        t=t, copy=int(copy), copy_idx=index([int(copy)]),
+                        link=int(real_links[real_i]),
+                        offset_pos=f32(np.asarray(a.offset_pos, np.float32)),
+                        offset_quat=f32(np.asarray(a.offset_quat, np.float32)),
+                        mask6=f32(mask6),
+                    ))
+                    placed = True
+                    break
+            if not placed:
+                raise NotImplementedError(
+                    "attractors are only supported on articulated bodies"
+                )
+        self._eye6 = torch.eye(6, dtype=torch.float32, device=dev)
         self.contact = contacts_mod.ContactSolver(scene, device=dev)
         # groups whose links have contact rows: their Jacobians and inverse
         # implicit operators feed the solve
@@ -104,6 +157,7 @@ class Stepper:
         self.dt = sp.dt
         self.substeps = max(1, sp.substeps)
         self.h = sp.dt / self.substeps
+        self.debug = _debug.enabled()  # TIG_DEBUG=1
 
         # (slots, body slots) of the free and static groups, on the device
         self._groups = [
@@ -133,10 +187,12 @@ class Stepper:
         # solver's `active` gate on re-entry. Within a step the impulses
         # always carry from one substep to the next.
         warm = (state.warm_n, state.warm_t) if state.warm_n is not None else None
-        for _ in range(self.substeps):
+        for sub_i in range(self.substeps):
             state, warm = self._substep(
                 state, actions, params, reuse_body_state=first, warm=warm
             )
+            if self.debug:
+                _debug.check_finite(state, f"substep {sub_i}")
             first = False
         state = self.refresh_body_state(state, params)
         if warm is not None and state.warm_n is not None:
@@ -181,7 +237,7 @@ class Stepper:
         h = self.h
         g_vec = params.gravity
         group_data = []
-        for gi in self.groups:
+        for gi, attractors in zip(self.groups, self.attractors_by_group):
             topo = gi.topo
             base = 0 if topo.fixed_base else 6
 
@@ -278,6 +334,10 @@ class Stepper:
             dv_max = fric * h / m_jj.clamp_min(1e-9)
             qd_new = qd_new - torch.clamp(qd_new, -dv_max, dv_max)
 
+            for att in attractors:
+                qd_new = self._attractor_impulse(att, topo, pos, quat, M_full, qd_new,
+                                                 actions, params)
+
             # assemble the generalized velocity vector matching the jacobian
             # column layout ([lin(3), ang(3), joints] for floating base)
             if topo.fixed_base:
@@ -291,6 +351,51 @@ class Stepper:
                      root_pos=root_pos, root_quat=root_quat, base=base)
             )
         return group_data
+
+    def _attractor_impulse(self, att: _Attractor, topo: ArtTopo, pos, quat, M_full,
+                           qd_new, actions: Actions, params: PhysParams):
+        """qd_new (N, K, Dg) after one attractor's implicit 6-DOF
+        spring-damper impulse (stable at the reference's stiffness=5e5,
+        its franka_attractor.py:151): the soft-constraint velocity solve
+            (J M^-1 J^T + I/(h(hk+c))) lam = k*err/(hk+c) - v6
+        applied as the joint-velocity impulse dqd = M^-1 J^T lam. M is phase
+        A's mass matrix of the copy (the JAX package rebuilds the same CRBA
+        from the same link poses and params)."""
+        h = self.h
+        c, t, link = att.copy, att.t, att.link
+        M = M_full[:, c]  # (N, nv, nv); fixed base: nv == Dg
+        J = body_jacobian(topo, pos[:, c], quat[:, c], link)
+        p_l = pos[:, c, link]
+        q_l = quat[:, c, link]
+        p_att = p_l + quat_rotate(q_l, att.offset_pos)
+        q_att = quat_mul(q_l, att.offset_quat)
+        r = p_att - p_l
+        J_p = J[:, :3] - skew(r) @ J[:, 3:]
+        Jt = torch.cat([J_p, J[:, 3:]], dim=-2)  # (N, 6, nv)
+        m6 = att.mask6
+        Jm = m6[:, None] * Jt
+        k_a = params.attractor_stiffness[:, t]
+        c_a = params.attractor_damping[:, t]
+        en = actions.attractor_enabled[:, t] & ((k_a + c_a) > 0)
+        denom = (h * k_a + c_a).clamp_min(1e-9)
+        gamma = 1.0 / (h * denom)
+        err_p = actions.attractor_target_pos[:, t] - p_att
+        err_r = orientation_error(actions.attractor_target_quat[:, t], q_att)
+        err6 = torch.cat([err_p, err_r], dim=-1) * m6
+        v6 = (Jt @ qd_new[:, c, :, None])[..., 0] * m6
+        X = spd_solve(M, Jm.transpose(-1, -2))  # (N, nv, 6)
+        W = Jm @ X
+        A = W + (gamma[:, None] + (1.0 - m6))[..., None] * self._eye6
+        rhs = (k_a / denom)[:, None] * err6 - v6
+        lam = spd_solve(A, rhs) * m6
+        # force limit (AttractorProperties.forceLimit)
+        flim = params.attractor_force_limit[:, t]
+        lnorm = torch.linalg.vector_norm(lam[:, :3], dim=-1).clamp_min(1e-9)
+        scale = torch.clamp_max(flim * h / lnorm, 1.0)
+        lam = lam * torch.where(torch.isfinite(flim), scale, 1.0)[:, None]
+        lam = torch.where(en[:, None], lam, 0.0)
+        dqd = (X @ lam[..., None])[..., 0]
+        return qd_new.index_add(1, att.copy_idx, dqd[:, None])
 
     # ------------------------------------------------------------------
     def free_velocities(self, state: SimState, actions: Actions, params: PhysParams):
@@ -341,16 +446,17 @@ class Stepper:
         substep's entry, statics from the cache) and, for each group with
         contact rows, its link Jacobians and inverse implicit operator
         (None for the others). Orientations are built only for a contact
-        table (the sphere world reads positions only)."""
-        table = self.contact.num_contacts > 0
+        table or a neighbor world (the sphere world reads positions only)."""
+        c = self.contact
+        need_quat = c.num_contacts > 0 or c.neighbor_world is not None
         cur_bp, cur_bq = state.body_pos, state.body_quat
         for gi, gd in zip(self.groups, group_data):
             cur_bp = cur_bp.index_copy(1, gi.body_flat, self._real(gi, gd["pos"]))
-            if table:
+            if need_quat:
                 cur_bq = cur_bq.index_copy(1, gi.body_flat, self._real(gi, gd["quat"]))
         if fd is not None:
             cur_bp = cur_bp.index_copy(1, self._fbody, fd["p0"])
-            if table:
+            if need_quat:
                 cur_bq = cur_bq.index_copy(1, self._fbody, fd["q0"])
         art_jac, art_Ainv = [], []
         for gi, gd, rows in zip(self.groups, group_data, self._group_has_rows):

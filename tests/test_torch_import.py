@@ -62,10 +62,12 @@ def test_entry_points_default_to_cuda():
     from test_isaacgym_tpu_torch.core.scene import SceneBuilder
     from test_isaacgym_tpu_torch.core.sim import Simulator, make_sim
     from test_isaacgym_tpu_torch.envs.balls import BallsEnv
+    from test_isaacgym_tpu_torch.envs.uav_car import UavCarEnv
     from test_isaacgym_tpu_torch.physics.step import Stepper
 
-    fields = {f.name: f.default for f in dataclasses.fields(BallsEnv)}
-    assert fields["device"] == "cuda"
+    for env in (BallsEnv, UavCarEnv):
+        fields = {f.name: f.default for f in dataclasses.fields(env)}
+        assert fields["device"] == "cuda", env
     for fn in (Simulator.__init__, SceneBuilder.finalize, Stepper.__init__, make_sim):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 

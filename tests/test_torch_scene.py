@@ -179,10 +179,12 @@ def test_unported_paths_raise():
     b.add_heightfield(np.zeros((8, 8), np.int16), 0.1, 0.01)
     with pytest.raises(NotImplementedError, match="heightfield"):
         Stepper(b.finalize("cpu")[0], "cpu")
-    # the neighbor-list solve
+    # the neighbor-list solve is ported (the name is the test's from before):
+    # the mixed world steps, its boxes and spheres falling onto the ground
     sim = Simulator(*_mixed_builder(PORT).finalize("cpu"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        sim.step()
+    sim.rollout(40)
+    z = sim.state.root_pos[0, :, 2]
+    assert torch.isfinite(sim.state.root_pos).all() and 0.0 < float(z.min()) < 0.1
     # soft bodies
     ball = prim.create_sphere(0.1)
     ball.links[0].fem = FemSpec(verts=np.zeros((4, 3)), tets=np.zeros((1, 4), np.int32))

@@ -12,8 +12,9 @@ by side; tolerance: the goldens' rule, 1e-4 * max(|ref|, 1):
   * 64 free spheres on a ground beside a shape-free pendulum arm: the
     sphere-world contact solve with an articulation group in the scene;
   * a pendulum whose bob carries a sphere swinging into the ground: contact
-    rows on an articulation link (LINK vs STATIC).
-What the port does not run yet raises NotImplementedError: attractors.
+    rows on an articulation link (LINK vs STATIC);
+  * a pendulum pulled by an attractor on its bob (tests/test_torch_attractor.py
+    holds the Franka attractor paths).
 """
 import functools
 import importlib
@@ -177,10 +178,22 @@ def test_link_contact_rows_raise():
 
 
 def test_attractors_raise():
+    """The scene that raised before attractors were ported (hence the name)
+    now steps like the JAX package: the attractor, attached at the bob's
+    center of mass and aimed at its initial target 0.5 m to the side,
+    swings the bob out through 40 steps."""
     def build(pkg, b, config):
         b.create_env((-1, -1, 0), (1, 1, 2), 1)
         b.create_actor(0, pendulum_asset(pkg), name="arm")
-        b.add_attractor(0, 0, 1, stiffness=100.0, damping=10.0)
+        b.add_attractor(0, 0, 1, offset_pos=(0, 0, -1.0), stiffness=100.0, damping=10.0,
+                        target_pos=(0.5, 0, -0.8))
 
-    with pytest.raises(NotImplementedError, match="attractor"):
-        _sim(PORT, build)
+    jsim, sim = _sim(JAX, build), _sim(PORT, build)
+    for k in range(4):
+        for _ in range(10):
+            jsim.step()
+            sim.step()
+        got, want = to_numpy(sim.state), jsim.state._asdict()
+        for f in FIELDS:
+            _check(got[f], want[f], f"{f} after {10 * (k + 1)} steps")
+    assert abs(float(sim.state.dof_pos[0, 0])) > 0.01  # the attractor moved the bob
