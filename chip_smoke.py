@@ -27,8 +27,17 @@ pursuit (and 16 envs against tests/goldens/uav_car.npz), 1080 boxes on the
 neighbor-list solve (sphere-world count 0), and 100 spheres beside 100
 boxes, where the sphere-world kernel runs beside that solve (its launches
 counted exactly, the kernel held against its plain version on that world);
-last the TIG_DEBUG checks (a planted NaN raises, verify_step_purity on the
-balls, Franka OSC and franka_cube steps). It prints:
+then the TIG_DEBUG checks (a planted NaN raises, verify_step_purity on the
+balls, Franka OSC and franka_cube steps); last the convex-hull and terrain
+paths, each with its counts read around its run: kuka_bin.py's five objects
+(a cube, two convex hulls made by create_mesh_asset, a sphere, a capsule)
+in each of 4096 envs on a ground plane (hull_pile4096) and over the 1200 x
+2000 AnymalTerrain heightfield (terrain4096), no kernel (sphere-world count
+0), each held to an 8-env golden made by the JAX package; and the 1080 balls
+over a terrain bowl (balls_terrain1080), where the sphere-world kernel runs
+without its ground beside 1080 sphere-terrain rows of the contact table
+(launches counted exactly, the kernel held against its plain version on
+that world's piled inputs). It prints:
   * the card's name and power limit (nvidia-smi);
   * per-phase numbers (build seconds, kernel and plain times, each launch's
     share of a solve and one sweep's cost, ball-steps/s, Franka env-steps/s
@@ -118,8 +127,33 @@ UAV_CIRCLE_SLACK, UAV_PIXEL_BOUND = 0.5, 2.0
 # 0.1) and its mixed world of 100 spheres and 100 boxes (80 steps; z in
 # (0.05, 0.6)), whose spheres take the sphere-world kernel
 BOX_COUNT, BOX_STEPS, MIXED_STEPS = 1080, 120, 80
+# the convex-hull and terrain paths (envs/pile.py): kuka_bin.py's five
+# objects in every env of HULL_ENVS on a ground plane, and of TERRAIN_ENVS
+# over the AnymalTerrain map, each PILE_STEPS steps; their 8-env goldens
+# (hull_pile.npz, terrain_pile.npz, made by the JAX package) hold root
+# poses every 10th step. After PILE_STEPS steps hull_pile's lowest object
+# clearance may lie HULL_SINK_SLACK m under the JAX package's on the same
+# 4096 envs, and its share of envs at rest (every object slower than
+# REST_SPEED) may differ from the JAX package's by HULL_REST_SLACK; both
+# JAX values are stored in hull_pile.npz (tests/test_torch_hull.py run as a
+# script). On terrain every object ends above its local terrain height -
+# TERRAIN_BELOW, below it + TERRAIN_ABOVE and inside the map
+# (tests/test_gymapi.py::test_terrain_heightfield_contact's bounds), where
+# the local terrain is the lowest, and the highest, within TERRAIN_REACH m
+# of the object's centre (the objects' half extents are up to 0.09 m).
+HULL_ENVS = TERRAIN_ENVS = 4096
+PILE_STEPS, PILE_GOLDEN_EVERY = 120, 10
+HULL_SINK_SLACK, HULL_REST_SLACK, REST_SPEED = 0.005, 0.01, 0.1
+TERRAIN_BELOW, TERRAIN_ABOVE, TERRAIN_REACH = 0.05, 0.45, 0.1
+# the 1080 balls over a 64 x 64 pyramid_sloped_terrain(slope=-0.5) bowl at
+# 0.25 m x 0.005 m (terrain_creation.py's terrain), offset under the
+# pyramids: the sphere-world kernel without its ground, 240 steps; no ball
+# centre more than BALL_SINK m under the terrain (test_gymapi.py's bound)
+BALLS_TERRAIN_STEPS, BALL_SINK = 240, 0.05
 # the device of every phase's envs ("cpu" only in a rehearsal of the phases on the CPU)
 DEV = "cuda"
+# sphere-world launches of each main path's timed run, by path
+PATH_LAUNCHES = {}
 
 
 def log(*a):
@@ -492,6 +526,7 @@ def timed(run, kernels, what, steps, width, unit):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(kernels.launches)
+    PATH_LAUNCHES[what] = launches.get("sphere_world", 0)
     log(f"{what} main path: {steps} steps of {width} {unit} in {wall:.3f} s: "
         f"{width * steps / wall:.1f} {unit}-steps/s, {wall / steps * 1e3:.4f} ms/step, "
         f"sphere_world launches {launches.get('sphere_world', 0)}")
@@ -711,8 +746,8 @@ def neighbor_solve_args(sim, state):
 
 def box_phase(kernels) -> None:
     """The 1080-box world on the neighbor-list path: BOX_STEPS steps, twice
-    from the same state (the solve's scatter-adds use atomics), a profile
-    and the solve's device time."""
+    from the same state (they must give the same bits), a profile and the
+    solve's device time."""
     from test_isaacgym_tpu_torch.ops import neighbor_world as nw
 
     sim = box_sim(BOX_COUNT)
@@ -747,7 +782,9 @@ def box_phase(kernels) -> None:
     diff = max(float((a - b).abs().max()) for a, b in zip(s, again)
                if a is not None and a.is_floating_point() and a.numel())
     log(f"box{BOX_COUNT}: two runs of {BOX_STEPS} steps from one state: max |difference| "
-        f"{diff:.3e} (the solve's scatter-adds use atomics, whose order may vary)")
+        f"{diff:.3e} (the solve's per-body sums are segment sums, no atomics)")
+    if diff != 0.0:
+        raise RuntimeError(f"two box{BOX_COUNT} runs from one state differ by {diff:.3e}")
     profile_steps(lambda st: run(st, 10), s, step_ms, 10)
     args, kw = neighbor_solve_args(sim, s)
     dev_ms = device_ms(lambda: nw.solve(*args, **kw))
@@ -831,6 +868,186 @@ def debug_phase() -> None:
         del os.environ["TIG_DEBUG"]
     log("debug: a Franka OSC step under TIG_DEBUG=1 passed; verify_step_purity passed on "
         "the balls, Franka OSC and franka_cube steps")
+
+
+def pile_layers(sim, state) -> None:
+    """Ops and host ms (time_layers) of the contact table's layers in a
+    step of a free-body world: the narrowphase (hull and heightfield kinds
+    included), the solve's set-up (narrowphase included) and one Jacobi
+    sweep."""
+    stp, params = sim.stepper, sim.params
+    fd = stp.free_velocities(state, sim.actions, params)
+    cur_bp, cur_bq, jac, a_inv = stp.contact_inputs(state, [], fd)
+    c = stp.contact
+    solve_args = (cur_bp, cur_bq, (state.body_linvel, state.body_angvel), fd["v"], fd["w"],
+                  fd["m"], fd["I_w"], fd["com_w"], [], jac, a_inv, params, stp.h)
+    s = c.prepare(*solve_args)
+    time_layers({
+        "narrowphase": lambda: c.narrowphase(cur_bp, cur_bq, params),
+        "solve set-up (narrowphase included)": lambda: c.prepare(*solve_args),
+        f"one Jacobi sweep (x{s.iters} a substep)": s.sweep,
+    })
+
+
+def port_data(name) -> str:
+    """The path of a file the port commits under its assets/data/."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "test_isaacgym_tpu_torch",
+                        "assets", "data", name)
+
+
+def pile_sim(env_ids, terrain=None):
+    """A Simulator of envs `env_ids` of envs/pile.py's grid on DEV."""
+    from test_isaacgym_tpu_torch.assets import primitives
+    from test_isaacgym_tpu_torch.core import config
+    from test_isaacgym_tpu_torch.core.scene import SceneBuilder
+    from test_isaacgym_tpu_torch.core.sim import Simulator
+    from test_isaacgym_tpu_torch.envs import pile
+
+    b = SceneBuilder(pile.pile_params(config))
+    pile.build(b, config, pile.pile_assets(primitives), env_ids, terrain=terrain)
+    return Simulator(*b.finalize(DEV), device=DEV)
+
+
+def pile_phase(kernels, name, terrain=None) -> None:
+    """The hull_pile path (terrain None) or the terrain path at 4096 envs:
+    a step with host syncs made errors, PILE_STEPS timed steps with the
+    kernels' counts read around them (the sphere-world count must stay 0),
+    the path's bounds, a profile, the contact layers' ops and host ms, and
+    8 envs against the path's golden."""
+    from test_isaacgym_tpu_torch.envs import pile
+
+    width = TERRAIN_ENVS if terrain is not None else HULL_ENVS
+    t = time.perf_counter()
+    sim = pile_sim(range(width), terrain)
+    stp, c = sim.stepper, sim.stepper.contact
+    kinds = dict(zip(*np.unique(c.job.kind, return_counts=True)))
+    log(f"{name}: {width} envs built in {time.perf_counter() - t:.2f} s, {c.num_contacts} "
+        f"contact rows an env (rows of each kind: {({int(k): int(v) for k, v in kinds.items()})})")
+    if not set(range(10, 17)) <= set(kinds) or c.sphere_world is not None:
+        raise RuntimeError(f"{name} does not hold every hull kind on the table alone")
+
+    def run(state, steps):
+        return stp.rollout(state, sim.actions, sim.params, steps)
+
+    s0 = sim.state
+    run(s0, 1)  # warm
+    log(f"{name}: {count_ops(lambda: run(s0, 1))} non-view PyTorch ops a step")
+    assert_sync_free(lambda: run(s0, 1), name)
+    s, step_ms, launches = timed(lambda: run(s0, PILE_STEPS), kernels, name, PILE_STEPS, width,
+                                 "env")
+    if launches.get("sphere_world", 0):
+        raise RuntimeError(f"{name} launched the sphere-world kernel: {launches}")
+    assert_finite(s, name)
+    depth = c.narrowphase(s.body_pos, s.body_quat, sim.params)[2].cpu().numpy()
+    clearance = pile.ground_clearance(c, depth)
+    speed = torch.linalg.vector_norm(s.root_linvel, dim=-1)
+    rest = float((speed < REST_SPEED).all(1).float().mean())
+    log(f"{name} after {PILE_STEPS} steps: lowest clearance {clearance.min():.6f} m (env "
+        f"{clearance.argmin()}), share of envs at rest {rest:.6f}")
+    golden = np.load(port_data(f"{'terrain' if terrain is not None else 'hull'}_pile.npz"))
+    if terrain is None:
+        low, share = float(golden["jax_lowest"]), float(golden["jax_rest_share"])
+        log(f"  JAX package, the same {width} envs on the CPU: lowest clearance {low:.6f} m, "
+            f"share at rest {share:.6f}")
+        if clearance.min() < low - HULL_SINK_SLACK or abs(rest - share) > HULL_REST_SLACK:
+            raise RuntimeError(f"{name} sinks deeper or rests otherwise than the JAX package")
+    else:
+        check_terrain_bounds(sim, s, name, golden)
+    profile_steps(lambda st: run(st, 10), s, step_ms, 10)
+    pile_layers(sim, s)
+
+    ids = [int(k) for k in golden["env_ids"]]
+    small = pile_sim(ids, terrain)
+    every = PILE_GOLDEN_EVERY
+    worst = golden_err({k: golden[k] for k in ("root_pos", "root_quat")}, small.state,
+                       lambda st: {"root_pos": st.root_pos, "root_quat": st.root_quat},
+                       lambda st: small.stepper.rollout(st, small.actions, small.params, every))
+    log(f"{name} {len(ids)} envs vs its golden (root_pos, root_quat every {every} steps to step "
+        f"{every * (len(golden['root_pos']) - 1)}): max |err| of largest magnitude {worst:.3e}")
+    if worst > GOLDEN_TOL:
+        raise RuntimeError(f"{name} departs from its golden: {worst:.3e} > {GOLDEN_TOL}")
+
+
+def centre_heights(sim, state):
+    """(height of each object's centre above the terrain there, whether it
+    is over the map), flattened over envs: the terrain at a centre is the
+    heightfield's nearest cell, as tests/test_gymapi.py reads it."""
+    hf = sim.scene.heightfield
+    pos = state.root_pos.reshape(-1, 3).cpu().numpy()
+    R, C = hf.data.shape
+    i = np.rint((pos[:, 0] - hf.offset_x) / hf.horizontal_scale).astype(int)
+    j = np.rint((pos[:, 1] - hf.offset_y) / hf.horizontal_scale).astype(int)
+    inside = (i >= 0) & (i < R) & (j >= 0) & (j < C)
+    return pos[:, 2] - hf.data[np.clip(i, 0, R - 1), np.clip(j, 0, C - 1)], inside
+
+
+def check_terrain_bounds(sim, state, name, golden) -> None:
+    """Every object inside the map, its centre above the lowest terrain
+    within TERRAIN_REACH m of it - TERRAIN_BELOW and below the highest
+    there + TERRAIN_ABOVE (pile.terrain_clearance)."""
+    from test_isaacgym_tpu_torch.envs import pile
+
+    hf = sim.scene.heightfield
+    _, inside = centre_heights(sim, state)
+    below, above = pile.terrain_clearance(hf.data, hf.horizontal_scale, hf.offset_x,
+                                          state.root_pos.cpu().numpy(), TERRAIN_REACH)
+    log(f"{name}: lowest centre {below:.6f} m above the lowest terrain within "
+        f"{TERRAIN_REACH} m (bound -{TERRAIN_BELOW}; JAX package on the CPU "
+        f"{float(golden['jax_below']):.6f}), highest {above:.6f} m above the highest (bound "
+        f"{TERRAIN_ABOVE}; JAX {float(golden['jax_above']):.6f}), "
+        f"{int((~inside).sum())} outside the map")
+    if not (inside.all() and below > -TERRAIN_BELOW and above < TERRAIN_ABOVE):
+        raise RuntimeError(f"{name}: an object left the map or its terrain bounds")
+
+
+def balls_terrain_phase(kernels, sw) -> float:
+    """The 1080 balls over a bowl: the sphere-world kernel's no-ground branch
+    held against its plain version on the piled inputs, BALLS_TERRAIN_STEPS
+    steps with its launches counted exactly, the sinking bound, a profile.
+    Returns the kernel's max |err| there."""
+    from test_isaacgym_tpu_torch import terrain_utils as tu
+    from test_isaacgym_tpu_torch.envs.balls import BallsEnv
+
+    sub = tu.SubTerrain(width=64, length=64, vertical_scale=0.005, horizontal_scale=0.25)
+    bowl = tu.pyramid_sloped_terrain(sub, slope=-0.5).height_field_raw
+    env = BallsEnv(pyramids=36, device=DEV, heightfield=(bowl, 0.25, 0.005, -8.0, -8.0))
+    sim = env.sim
+    stp, c = sim.stepper, sim.stepper.contact
+    if c.sphere_world is None or c.sphere_world.has_ground or c.num_contacts != env.balls_per_world:
+        raise RuntimeError("the balls over terrain do not take the no-ground kernel beside the table")
+    log(f"balls_terrain1080: {env.balls_per_world} balls over a 64 x 64 bowl, the kernel without "
+        f"ground, {c.num_contacts} sphere-terrain rows in the table")
+    s0 = sim.state
+    run = env.rollout_fn(BALLS_TERRAIN_STEPS)
+    env.rollout_fn(1)(s0)  # warm
+    log(f"balls_terrain1080: {count_ops(lambda: env.rollout_fn(1)(s0))} non-view PyTorch ops a step")
+    assert_sync_free(lambda: env.rollout_fn(1)(s0), "balls_terrain1080")
+    want = sw.LAUNCHES_PER_SOLVE * stp.substeps * BALLS_TERRAIN_STEPS
+    s, step_ms, launches = timed(lambda: run(s0), kernels, "balls_terrain1080",
+                                 BALLS_TERRAIN_STEPS, env.balls_per_world, "ball")
+    log(f"balls_terrain1080: sphere_world launches {launches.get('sphere_world', 0)}, want "
+        f"{sw.LAUNCHES_PER_SOLVE} a solve x {stp.substeps} a step x {BALLS_TERRAIN_STEPS} = {want}")
+    if launches.get("sphere_world", 0) != want:
+        raise RuntimeError(f"balls_terrain1080 launched the kernel {launches} times, want {want}")
+    assert_finite(s, "balls_terrain1080")
+    depth = float(c.narrowphase(s.body_pos, s.body_quat, sim.params)[2].max())
+    above, inside = centre_heights(sim, s)
+    jax = np.load(port_data("terrain_pile.npz"))
+    log(f"balls_terrain1080 after {BALLS_TERRAIN_STEPS} steps: lowest ball centre "
+        f"{above.min():.6f} m above the terrain (bound -{BALL_SINK}; JAX package on the CPU "
+        f"{float(jax['jax_balls_lowest']):.6f}), {int((~inside).sum())} off the bowl; deepest "
+        f"contact {depth:.6f} m (JAX {float(jax['jax_balls_depth']):.6f})")
+    if not (above.min() > -BALL_SINK and inside.all()):
+        raise RuntimeError(f"a ball sank under the terrain or left it: {above.min():.6f} m")
+    profile_steps(env.rollout_fn(10), s, step_ms, 10)
+    pile_layers(sim, s)
+    fd = stp.free_velocities(s, sim.actions, sim.params)
+    args = c._sphere_world_inputs(s.body_pos, fd["v"], fd["w"], fd["m"], fd["I_w"], sim.params,
+                                  stp.h)
+    tag = f"balls_terrain1080 F={args[1].shape[1]} no ground after {BALLS_TERRAIN_STEPS} steps"
+    err = check_solve(sw, args, tag)
+    check_repeatable(sw, args, tag)
+    return err
 
 
 def cube_phase(kernels) -> None:
@@ -1005,6 +1222,21 @@ def main() -> int:
     log(f"sphere_world vs plain on the mixed world: max |err| {err_mixed:.3e}")
     debug_phase()
 
+    # ---- 8. convex hulls and terrain: kuka_bin.py's objects on a ground
+    # and over the AnymalTerrain map (no kernel), and the 1080 balls over a
+    # bowl (the kernel without ground), each with its own counts ----
+    from test_isaacgym_tpu_torch.envs import pile
+
+    pile_phase(_kernels, "hull_pile4096")
+    t = time.perf_counter()
+    terrain = pile.anymal_terrain()
+    log(f"terrain map {terrain[0].shape} made in {time.perf_counter() - t:.2f} s")
+    pile_phase(_kernels, "terrain4096", terrain)
+    err_terrain = balls_terrain_phase(_kernels, sw)
+    log(f"sphere_world vs plain on the balls over terrain: max |err| {err_terrain:.3e}")
+
+    log("sphere_world launches by main path: "
+        + ", ".join(f"{k} {v}" for k, v in PATH_LAUNCHES.items()))
     log(json.dumps({"kernels": [{
         "name": "sphere_world",
         "route": "cuda",

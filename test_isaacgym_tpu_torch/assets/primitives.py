@@ -1,9 +1,7 @@
 """Procedural primitive assets: gym.create_box / create_sphere / create_capsule
 (the reference's examples/franka_cube_ik_osc.py:156, interop_torch.py:56,
-body_physics_props.py:92).
-
-Mesh assets (create_mesh_asset) need the hull and SDF builders and come
-with the SDF slice of the port."""
+body_physics_props.py:92), and single-body mesh assets (create_mesh_asset)
+whose collision shape is the mesh's convex hull."""
 from __future__ import annotations
 
 import numpy as np
@@ -41,3 +39,37 @@ def create_sphere(radius: float, density: float = 1000.0, **opts) -> AssetSpec:
 def create_capsule(radius: float, half_length: float, density: float = 1000.0, **opts) -> AssetSpec:
     g = GeomSpec(GEOM_CAPSULE, (radius, half_length))
     return _single_body_asset(f"capsule_{radius}_{half_length}", g, density, **opts)
+
+
+def create_mesh_asset(
+    name: str,
+    vertices: np.ndarray,
+    faces: np.ndarray,
+    density: float = 1000.0,
+    sdf=None,
+    n_samples: int = 256,
+    max_hull_verts: int = 64,
+    **opts,
+) -> AssetSpec:
+    """Single-body asset from a triangle mesh, optionally carrying a
+    prebuilt SDF grid for SDF collision. Surface probes are FPS-sampled from
+    the FULL mesh before hulling, so concave detail (thread flanks) stays
+    collidable. A mesh that carries an SDF makes the contact table raise
+    until the SDF slice is ported (ROADMAP.md Queue 1, item 10)."""
+    from .mesh import convex_hull_vertices
+    from .sdf import farthest_point_sample
+    from .types import GEOM_MESH
+
+    vertices = np.asarray(vertices, np.float32)
+    center = (vertices.min(0) + vertices.max(0)) * 0.5
+    g = GeomSpec(
+        GEOM_MESH,
+        (),
+        vertices=convex_hull_vertices(vertices, max_hull_verts),
+        faces=np.asarray(faces, np.int32),
+        sdf=sdf,
+        sdf_samples=farthest_point_sample(vertices - center, n_samples),
+        visual_vertices=vertices - center,
+        visual_faces=np.asarray(faces, np.int32),
+    )
+    return _single_body_asset(name, g, density, **opts)

@@ -1,15 +1,20 @@
 """URDF importer -> AssetSpec.
 
 Port of test_isaacgym_tpu/assets/urdf.py (host numpy, no torch). Handles:
-  - box/sphere/capsule/cylinder geometry (collision + visual)
+  - box/sphere/capsule/cylinder/mesh geometry (collision + visual); a
+    collision mesh becomes its convex hull of at most `max_hull_verts`
+    vertices, and keeps the full mesh for rendering
+  - `package://` mesh paths resolved against the asset root (the
+    reference's assets/urdf/uav/urdf/rq-1-predator-mae-uav.urdf:14)
   - missing <inertial> -> density-based defaults (IsaacGym behavior)
   - fixed / revolute / continuous / prismatic / spherical joints, limits and
     dynamics
   - mimic-free trees only
   - collapse_fixed (AssetOptions.collapse_fixed_joints)
-Mesh geometry and `<sdf>` collision requests (ROADMAP.md Queue 1, item 10)
-and `<fem>` soft-body links (item 11) are later slices of the port: a file
-that has them raises NotImplementedError.
+`<sdf>` collision requests (ROADMAP.md Queue 1, item 10: SDF contact and
+nut-bolt) and `<fem>` soft-body links (item 11) are later slices of the
+port: a file that has them raises NotImplementedError. So is
+`use_mesh_materials` (item 12).
 """
 from __future__ import annotations
 
@@ -19,10 +24,12 @@ from typing import Optional
 
 import numpy as np
 
+from .mesh import convex_hull_vertices, load_mesh
 from .types import (
     GEOM_BOX,
     GEOM_CAPSULE,
     GEOM_CYLINDER,
+    GEOM_MESH,
     GEOM_SPHERE,
     JOINT_FIXED,
     JOINT_PRISMATIC,
@@ -78,7 +85,38 @@ def _parse_origin(el):
     return xyz, _rpy_to_quat(rpy)
 
 
-def _parse_geometry(geo_el, origin_el, path):
+def _resolve_mesh_path(filename: str, urdf_dir: str, asset_root: str) -> str:
+    if filename.startswith("package://"):
+        rel = filename[len("package://") :]
+        # search asset_root and urdf ancestors for the package dir
+        cands = [
+            os.path.join(asset_root, rel),
+            os.path.join(asset_root, "urdf", rel),
+            os.path.join(os.path.dirname(urdf_dir), rel),
+            os.path.join(os.path.dirname(os.path.dirname(urdf_dir)), rel),
+        ]
+        for c in cands:
+            if os.path.exists(c):
+                return c
+        return cands[0]
+    if os.path.isabs(filename):
+        return filename
+    # plain relative paths: the reference's assets resolve some against the
+    # URDF's directory, others against the asset root or its parent (e.g.
+    # ycb/011_banana/collision.obj inside urdf/ycb/011_banana/*.urdf)
+    cands = [
+        os.path.join(urdf_dir, filename),
+        os.path.join(asset_root, filename),
+        os.path.join(asset_root, "urdf", filename),
+        os.path.join(os.path.dirname(urdf_dir), filename),
+    ]
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    return cands[0]
+
+
+def _parse_geometry(geo_el, origin_el, urdf_dir, asset_root, load_meshes):
     pos, quat = _parse_origin(origin_el)
     g = geo_el.find("geometry")
     if g is None:
@@ -101,10 +139,17 @@ def _parse_geometry(geo_el, origin_el, path):
             l = float(child.get("length", 1.0))
             return GeomSpec(GEOM_CAPSULE, (r, l * 0.5), tuple(pos), tuple(quat))
         if tag == "mesh":
-            raise NotImplementedError(
-                f"{path}: <mesh> geometry ({child.get('filename', '')!r}) is not "
-                "ported to the torch package yet (ROADMAP.md Queue 1, item 10: "
-                "meshes and SDF)"
+            fn = child.get("filename", "")
+            scale = _floats(child.get("scale"), [1, 1, 1])
+            path = _resolve_mesh_path(fn, urdf_dir, asset_root)
+            verts = faces = None
+            if load_meshes:
+                verts, faces = load_mesh(path)
+                if verts is not None:
+                    verts = (verts * scale).astype(np.float32)
+            return GeomSpec(
+                GEOM_MESH, (), tuple(pos), tuple(quat), mesh_path=path,
+                mesh_scale=tuple(scale), vertices=verts, faces=faces,
             )
     return None
 
@@ -117,10 +162,13 @@ def load_urdf(
     density: float = 1000.0,
     default_dof_drive_mode: int = 0,
     armature: float = 0.0,
+    load_meshes: bool = True,
+    max_hull_verts: int = 64,
 ) -> AssetSpec:
     path = os.path.join(asset_root, filename)
     tree = ET.parse(path)
     robot = tree.getroot()
+    urdf_dir = os.path.dirname(path)
 
     links_by_name = {}
     for el in robot.findall("link"):
@@ -156,13 +204,21 @@ def load_urdf(
             if c.find("sdf") is not None:
                 raise NotImplementedError(
                     f"{path}: link {name!r} asks for <sdf> collision, not ported to "
-                    "the torch package yet (ROADMAP.md Queue 1, item 10: meshes and SDF)"
+                    "the torch package yet (ROADMAP.md Queue 1, item 10: SDF contact "
+                    "and nut-bolt)"
                 )
-            g = _parse_geometry(c, c.find("origin"), path)
+            g = _parse_geometry(c, c.find("origin"), urdf_dir, asset_root, load_meshes)
             if g is not None:
+                if g.kind == GEOM_MESH and g.vertices is not None:
+                    if g.faces is not None and len(g.faces):
+                        # keep the full mesh for the visual triangle pass
+                        # (AABB-centered = shape frame) before hulling
+                        g.visual_vertices = g.vertices - g.mesh_center()
+                        g.visual_faces = np.asarray(g.faces, np.int32)
+                    g.vertices = convex_hull_vertices(g.vertices, max_hull_verts)
                 l.geoms.append(g)
         for v in el.findall("visual"):
-            g = _parse_geometry(v, v.find("origin"), path)
+            g = _parse_geometry(v, v.find("origin"), urdf_dir, asset_root, load_meshes)
             if g is not None:
                 mat = v.find("material")
                 if mat is not None:

@@ -764,7 +764,8 @@ class SceneBuilder:
                 if getattr(link, "fem", None) is not None:
                     raise NotImplementedError(
                         f"actor {p.name!r} has a <fem> link: soft bodies are "
-                        "not ported to the torch package yet"
+                        "not ported to the torch package yet (ROADMAP.md Queue 1, "
+                        "item 11: soft bodies)"
                     )
         soft = None
 

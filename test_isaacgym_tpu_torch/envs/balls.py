@@ -8,11 +8,16 @@ is the workload the dense sphere-world contact path (ops/sphere_world.py)
 exists for — a single env holds all 1080 free bodies, so every candidate
 pair is live.
 
-`num_worlds` batches identical worlds along the env axis.
+`num_worlds` batches identical worlds along the env axis. With `heightfield`
+the world lies over terrain instead of the ground plane (the reference's
+examples/terrain_creation.py drops its balls so): the sphere world then
+solves the ball pairs without a ground, and each ball's terrain contact is
+a row of the contact table.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -31,6 +36,9 @@ class BallsEnv:
     radius: float = 0.2
     seed: int = 17  # reference seeds 17 (:91)
     device: str = "cuda"
+    # terrain in place of the ground plane: SceneBuilder.add_heightfield's
+    # (heightfield_raw, horizontal_scale, vertical_scale, offset_x, offset_y)
+    heightfield: Optional[tuple] = None
 
     def __post_init__(self):
         sp = SimParams(dt=1 / 60, substeps=1, gravity=(0.0, 0.0, -9.8))
@@ -39,7 +47,10 @@ class BallsEnv:
         ball = create_sphere(self.radius, density=500.0)
 
         b = SceneBuilder(sp)
-        b.add_ground(PlaneParams())
+        if self.heightfield is None:
+            b.add_ground(PlaneParams())
+        else:
+            b.add_heightfield(*self.heightfield)
         rng = np.random.RandomState(self.seed)
         spacing = 2.5 * self.radius  # reference :107
         grid = int(np.ceil(np.sqrt(self.pyramids)))

@@ -10,10 +10,9 @@ visual-servos to keep the car centered in the image. One control + write +
 physics step is a run of eager PyTorch ops on `device` with no host sync;
 `rollout` loops it.
 
-Assets: the reference's UAV/car URDFs when `asset_root` holds them (the
-port's URDF importer then raises on their <mesh> geometry: meshes are
-ROADMAP.md Queue 1, item 10), primitive boxes otherwise, as in the JAX
-package when the reference's assets are absent. The dynamics are kinematic
+Assets: the reference's UAV/car URDFs when `asset_root` holds them (their
+<mesh> geometry loads as convex hulls), primitive boxes otherwise, as in
+the JAX package when the reference's assets are absent. The dynamics are kinematic
 root writes either way.
 """
 from __future__ import annotations

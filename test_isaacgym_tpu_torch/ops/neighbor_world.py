@@ -22,9 +22,8 @@ leave the static contact table for this path. `solve` is plain PyTorch, as
 the JAX package's is jnp: no Pallas kernel reaches it. Two of its choices
 depend on order, and follow `lax.top_k`, which puts the lower index first
 among equal values: the neighbor list and the manifold's corners are picked
-by a stable sort. Its scatter-adds into the (F,) velocity rows use atomics
-on the GPU, so two solves of the same inputs there may differ in the last
-bits.
+by a stable sort. Its per-body sums are segment sums (`_Segments`), with no
+atomics, so two solves of the same inputs give the same bits on the GPU too.
 
 Conventions match contacts.py: normal points j -> i (b -> a), Baumgarte
 beta=0.2, speculative targets below the slop depth, PhysX AVERAGE combine.
@@ -209,13 +208,39 @@ def _take(x, idx):
     return out.reshape((N, idx.shape[1]) + tuple(x.shape[2:]))
 
 
-def _scatter(idx, rows, F):
-    """Sum of `rows` (N, R, ...) into F bodies by idx (N, R): (N, F, ...)."""
-    N = rows.shape[0]
-    flat = rows.reshape(N, rows.shape[1], -1)
-    out = flat.new_zeros((N, F, flat.shape[-1]))
-    out.scatter_add_(1, idx[..., None].expand(-1, -1, flat.shape[-1]), flat)
-    return out.reshape((N, F) + tuple(rows.shape[2:]))
+class _Segments:
+    """Deterministic sums of per-row values into F bodies by an index
+    (N, R) that is fixed for one solve: the rows are stable-sorted by body
+    once, and each sum is a gather in that order, one float64 cumulative
+    sum over all columns end to end, and its differences at the segment
+    ends (found once by searchsorted). The same bits on every run, unlike a
+    scatter-add with atomics. One long scan, not a scan a column: the GPU
+    scans a row in parallel, but each of a few short-axis columns in one
+    thread."""
+
+    def __init__(self, idx, F):
+        N, self.R = idx.shape
+        sorted_idx, self.order = torch.sort(idx, dim=1, stable=True)
+        bodies = torch.arange(F, dtype=idx.dtype, device=idx.device).expand(N, F)
+        # each body's segment [bounds[f], bounds[f + 1]) in sorted order
+        end = torch.searchsorted(sorted_idx, bodies.contiguous(), right=True)
+        self.bounds = torch.nn.functional.pad(end, (1, 0))  # (N, F + 1)
+        self._at = {}  # columns k -> where column c's bounds lie in the scan
+
+    def __call__(self, rows):
+        """Sum of `rows` (N, R, ...) into the bodies: (N, F, ...)."""
+        N, R, tail = rows.shape[0], self.R, tuple(rows.shape[2:])
+        cols = rows.reshape(N, R, -1).transpose(1, 2)  # (N, k, R)
+        k, F = cols.shape[1], self.bounds.shape[1] - 1
+        if k not in self._at:
+            shift = torch.arange(k, device=rows.device)[:, None] * R
+            self._at[k] = (self.bounds[:, None] + shift).reshape(N, k * (F + 1))
+        g = torch.gather(cols, 2, self.order[:, None].expand(N, k, R)).reshape(N, k * R)
+        # cs[:, j] = sum of the first j entries of the columns laid end to end
+        cs = torch.nn.functional.pad(g.cumsum(1, dtype=torch.float64), (1, 0))
+        at = torch.gather(cs, 1, self._at[k]).reshape(N, k, F + 1)
+        seg = (at[..., 1:] - at[..., :-1]).to(rows.dtype)  # (N, k, F)
+        return seg.transpose(1, 2).reshape((N, F) + tail)
 
 
 def _ext(R, sz, ax, dot):
@@ -431,7 +456,9 @@ def solve(
     bias = torch.clamp_max(beta * h_inv * torch.clamp_min(dep - slop, 0.0), max_depen)
 
     af = active.to(dt)
-    cnt = (sum_a(af) + _scatter(ib_, af * has_b, F)).clamp_min(1.0)
+    # side b: only the pair rows (the first Cp) have one
+    sum_b = _Segments(ib_[:, :Cp], F)
+    cnt = (sum_a(af) + sum_b(af[:, :Cp])).clamp_min(1.0)
     split_a = 1.0 / side_a(cnt)
     split_b = 1.0 / _take(cnt, ib_)
 
@@ -472,8 +499,9 @@ def solve(
     def apply_impulse(v_, w_, imp):
         dv_b = -imp * wb_v[..., None]
         dw_b = mat_vec(wb_w, cross(r_b, -imp))
-        v_ = v_ + sum_a(imp * wa_v[..., None]) + _scatter(ib_, dv_b, F)
-        w_ = w_ + sum_a(mat_vec(wa_w, cross(r_a, imp))) + _scatter(ib_, dw_b, F)
+        dvw_b = sum_b(torch.cat([dv_b, dw_b], -1)[:, :Cp])
+        v_ = v_ + sum_a(imp * wa_v[..., None]) + dvw_b[..., :3]
+        w_ = w_ + sum_a(mat_vec(wa_w, cross(r_a, imp))) + dvw_b[..., 3:]
         return v_, w_
 
     lam = torch.zeros_like(dep)
@@ -497,5 +525,5 @@ def solve(
         lam, lamt = new_lam, new_lamt
 
     f_c = torch.where(active, lam, 0.0)[..., None] * nrm * h_inv
-    cf = sum_a(f_c) + _scatter(ib_, torch.where(has_b[..., None], -f_c, 0.0), F)
+    cf = sum_a(f_c) + sum_b(-f_c[:, :Cp])
     return vel, omega, cf

@@ -7,17 +7,20 @@ Port of test_isaacgym_tpu/physics/contacts.py:
     every index, one-hot and per-row constant that narrowphase and the solve
     read, as tensors on the device, once;
   * `ContactSolver.narrowphase` computes (point, normal, depth, active) of
-    every row of the primitive kinds 0-9: sphere, capsule and box against
-    the ground plane; sphere-sphere, sphere-box, sphere-capsule,
+    every row of kinds 0-16: sphere, capsule and box against the ground
+    plane or the heightfield; sphere-sphere, sphere-box, sphere-capsule,
     capsule-capsule, capsule-box; the box-box face-SAT manifold and the
-    deepest edge-edge pair;
+    deepest edge-edge pair; and the convex-hull kinds, each a manifold of
+    the 4 deepest candidates of a shape pair (hull vertices against the
+    ground, a box or another hull; box corners in a hull) or a sphere or
+    capsule end against a hull's face planes;
   * `ContactSolver.solve` runs the dense sphere-world fast path
     (ops/sphere_world.py), the neighbor-list solve of large mixed
     box/sphere worlds (ops/neighbor_world.py), then the relaxed-Jacobi
     solve of the table over FREE, LINK and STATIC sides with cross-step
     warm start.
-Convex hulls and the heightfield (ROADMAP.md Queue 1, item 7), SDF probes
-(item 10) raise NotImplementedError at construction.
+SDF probe rows (ROADMAP.md Queue 1, item 10) raise NotImplementedError at
+construction.
 
 Each contact side is one of
   FREE   — free rigid body: responds via (1/m, I^-1) impulses,
@@ -86,7 +89,9 @@ K_SPH_HULL = 15  # sphere(a) vs hull(b)
 K_CAP_HULL = 16  # capsule(a) endpoint spheres vs hull(b)
 K_PT_SDF = 17  # surface probes of mesh(a) vs voxel SDF of mesh(b)
 # the kinds this package's narrowphase computes, in the JAX package's order
-PRIMITIVE_KINDS = tuple(range(K_BOX_BOX_EDGE + 1))
+NARROWPHASE_KINDS = tuple(range(K_CAP_HULL + 1))
+# kinds whose shape pair emits _MANIFOLD consecutive rows, computed once a pair
+_HULL_MANIFOLD_KINDS = (K_HULL_PLANE, K_HULLV_BOX, K_BOXV_HULL, K_HULLV_HULL, K_HULLV_HULL_R)
 
 _MANIFOLD = 4  # contact manifold size for hull vertex kinds
 _SDF_MANIFOLD = 16  # manifold size for SDF probe kinds
@@ -406,19 +411,7 @@ class ContactSolver:
             raise NotImplementedError(
                 "this scene's contact table has SDF probe rows (K_PT_SDF): "
                 "not ported to the torch package yet (ROADMAP.md Queue 1, "
-                "item 10: meshes, SDF contact and nut-bolt)"
-            )
-        if kinds - set(PRIMITIVE_KINDS):
-            raise NotImplementedError(
-                "this scene's contact table has convex-hull rows: the hull "
-                "kinds are not ported to the torch package yet (ROADMAP.md "
-                "Queue 1, item 7: contacts part 2, hulls and heightfield)"
-            )
-        if scene.heightfield is not None:
-            raise NotImplementedError(
-                "contact with a heightfield is not ported to the torch "
-                "package yet (ROADMAP.md Queue 1, item 7: contacts part 2, "
-                "hulls and heightfield)"
+                "item 10: SDF contact and nut-bolt)"
             )
 
         # static one-hot (B_env, C) matrices: per-body segment reductions in
@@ -440,6 +433,14 @@ class ContactSolver:
         self._oh_cf_a = oh_body(job.a.body, np.ones(C, bool))
         self._oh_cf_b = oh_body(job.b.body, job.shape_b >= 0)
 
+        # heightfield terrain: contact stays heightfield-native
+        hf = scene.heightfield
+        if hf is not None:
+            self.hf_data = np.asarray(hf.data, np.float32)
+            self.hf_scale = float(hf.horizontal_scale)
+            self.hf_off = (float(hf.offset_x), float(hf.offset_y))
+        else:
+            self.hf_data = None
         # plane params
         pl = scene.ground
         if pl is not None:
@@ -454,6 +455,23 @@ class ContactSolver:
             self.plane_d = np.float32(0)
             self.plane_friction = np.float32(1.0)
             self.plane_restitution = np.float32(0.0)
+
+        # convex hull tables: every hull's vertices padded with its centroid,
+        # its face planes [n, d] (n.x + d <= 0 inside) with a never-binding
+        # face, to the scene's largest hull
+        self.hull_verts = self.hull_planes = None
+        if scene.hulls:
+            plane_list = [_hull_planes(hv) for hv in scene.hulls]
+            Vmax = max(len(h) for h in scene.hulls)
+            fmax = max([4] + [len(eq) for eq in plane_list])
+            verts, planes = [], []
+            for hv, eq in zip(scene.hulls, plane_list):
+                pad = np.tile(hv.mean(0), (Vmax - len(hv), 1))
+                verts.append(np.concatenate([hv, pad], 0))
+                peq = np.tile(np.array([[0, 0, 1, -1e9]], np.float32), (fmax - len(eq), 1))
+                planes.append(np.concatenate([eq, peq], 0))
+            self.hull_verts = np.stack(verts).astype(np.float32)
+            self.hull_planes = np.stack(planes).astype(np.float32)
 
         if device is not None:
             self._tables(torch.empty(0, device=device).device)
@@ -566,8 +584,60 @@ class ContactSolver:
         size_b = params.shape_size[:, t.shape_b]
         pn, pd = t.plane_n, float(self.plane_d)
 
-        def ground(p):
-            return (p * pn).sum(-1) - pd, pn.expand(p.shape)
+        if t.hf is not None:
+            def ground(p):
+                return _heightfield_sdf(t.hf, self.hf_scale, self.hf_off, p, t.hf_corner)
+        else:
+            def ground(p):
+                return (p * pn).sum(-1) - pd, pn.expand(p.shape)
+
+        def hull_verts(code, i, p_, q_, size):
+            """World vertices (N, P, V, 3) of each pair's vertex hull, on
+            side p_/q_/size of rows i, scaled by runtime / static size."""
+            sig = size[:, i] / t.hull_v_size[code]
+            v_loc = t.hull_v[code][None] * sig[:, :, None, :]
+            return quat_rotate(q_[:, i, None], v_loc) + p_[:, i, None]
+
+        def in_hull(code, i, p_, q_, size, x):
+            """Signed distance (N, P, K) and outward world normal of points
+            x (N, P, K, 3) against each pair's plane hull: the largest face
+            distance, and the mean normal of the faces that reach it."""
+            planes = t.hull_p[code]  # (P, F, 4)
+            sig = size[:, i] / t.hull_p_size[code]  # (N, P, 3)
+            sig_u = sig.mean(-1)  # uniform-scale approximation
+            q_i = q_[:, i, None]
+            rel = quat_rotate(quat_conjugate(q_i), x - p_[:, i, None])
+            rel = rel / sig.clamp_min(1e-6)[:, :, None, :]
+            pl = planes[None, :, None]  # (1, P, 1, F, 4)
+            s_f = (rel[..., 0, None] * pl[..., 0] + rel[..., 1, None] * pl[..., 1]
+                   + rel[..., 2, None] * pl[..., 2] + pl[..., 3])  # (N, P, K, F)
+            sd_raw = s_f.max(-1).values
+            # the faces at the maximum, averaged (a tie of two faces gives
+            # the mean of their normals, renormalized below)
+            m = (s_f >= sd_raw[..., None]).to(s_f.dtype)
+            m = m / m.sum(-1, keepdim=True).clamp_min(1.0)
+            n_loc = torch.einsum("npkf,pfc->npkc", m, planes[..., :3])
+            n_len = torch.sqrt((n_loc * n_loc).sum(-1).clamp_min(1e-12))
+            return sd_raw * sig_u[..., None], quat_rotate(q_i, n_loc / n_len[..., None])
+
+        def top4(pts, nrm, deps):
+            """The _MANIFOLD deepest of each pair's candidates (N, P, K):
+            (point, normal, depth) of rows (N, P * _MANIFOLD), deepest
+            first. Each pass takes the first candidate at the maximum (the
+            JAX package's one-hot of `d >= max` cut to its first column by
+            a cumulative sum; torch.max returns that first index) and masks
+            it out."""
+            N_, P = deps.shape[:2]
+            d, vals, idx = deps, [], []
+            for _ in range(_MANIFOLD):
+                m, j = d.max(-1)
+                vals.append(m)
+                idx.append(j)
+                d = d.scatter(-1, j[..., None], float("-inf"))
+            j = torch.stack(idx, -1)[..., None].expand(N_, P, _MANIFOLD, 3)
+            return (torch.gather(pts, 2, j).reshape(N_, P * _MANIFOLD, 3),
+                    torch.gather(nrm.expand(pts.shape), 2, j).reshape(N_, P * _MANIFOLD, 3),
+                    torch.stack(vals, -1).reshape(N_, P * _MANIFOLD))
 
         def cap_axis(q):
             return quat_rotate(q, t.ez)
@@ -659,10 +729,55 @@ class ContactSolver:
                     t.corners[code], t.bb_is_av,
                     self.scene.sim_params.physx.contact_offset,
                 ))
-            else:  # K_BOX_BOX_EDGE
+            elif code == K_BOX_BOX_EDGE:
                 parts.append(_box_box_edge(
                     pa[:, i], qa[:, i], size_a[:, i], pb[:, i], qb[:, i], size_b[:, i]
                 ))
+            elif code == K_HULL_PLANE:  # hull(a) verts vs ground or heightfield
+                w = hull_verts(code, i, pa, qa, size_a)
+                d, n = ground(w)
+                parts.append(top4(w, n, -d))
+            elif code == K_HULLV_BOX:  # hull(a) verts in box(b): point vs box, r = 0
+                w = hull_verts(code, i, pa, qa, size_a)
+                pb_i, qb_i, szb = pb[:, i, None], qb[:, i, None], size_b[:, i, None]
+                rel = quat_rotate(quat_conjugate(qb_i), w - pb_i)
+                cl = torch.clamp(rel, -szb, szb)
+                pen = szb - rel.abs()
+                inside = (pen >= 0).all(-1)
+                m = torch.minimum(pen[..., 0], torch.minimum(pen[..., 1], pen[..., 2]))
+                is_x = pen[..., 0] <= m
+                is_y = ~is_x & (pen[..., 1] <= m)
+                sel = torch.stack([is_x, is_y, ~is_x & ~is_y], -1)
+                sgn = torch.sign(rel)
+                surf = torch.where(inside[..., None] & sel, sgn * szb, cl)
+                dv = w - (quat_rotate(qb_i, surf) + pb_i)
+                dist = torch.sqrt(dv[..., 0] ** 2 + dv[..., 1] ** 2 + dv[..., 2] ** 2
+                                  ).clamp_min(1e-9)
+                n_in = quat_rotate(qb_i, torch.where(sel, sgn, 0.0))
+                n = torch.where(inside[..., None], n_in, dv / dist[..., None])
+                parts.append(top4(w, n, torch.where(inside, dist, -dist)))
+            elif code == K_BOXV_HULL:  # box(b) corners in hull(a)
+                cw = quat_rotate(qb[:, i, None], t.box8 * size_b[:, i, None]) + pb[:, i, None]
+                sd, n_out = in_hull(code, i, pa, qa, size_a, cw)
+                parts.append(top4(cw, -n_out, -sd))
+            elif code == K_HULLV_HULL:  # hull(a) verts in hull(b)
+                w = hull_verts(code, i, pa, qa, size_a)
+                sd, n_out = in_hull(code, i, pb, qb, size_b, w)
+                parts.append(top4(w, n_out, -sd))
+            elif code == K_HULLV_HULL_R:  # hull(b) verts in hull(a)
+                w = hull_verts(code, i, pb, qb, size_b)
+                sd, n_out = in_hull(code, i, pa, qa, size_a, w)
+                parts.append(top4(w, -n_out, -sd))
+            elif code in (K_SPH_HULL, K_CAP_HULL):  # sphere(a) / capsule end(a) vs hull(b)
+                r = size_a[:, i, 0]
+                c = pa[:, i]
+                if code == K_CAP_HULL:  # both ends in one pass, by end_sign
+                    c = c + cap_axis(qa[:, i]) * (size_a[:, i, 1] * t.end_sign[code])[..., None]
+                sd, n_out = in_hull(code, i, pb, qb, size_b, c[:, :, None])
+                n1 = n_out[:, :, 0]
+                parts.append((c - n1 * r[..., None], n1, r - sd[:, :, 0]))
+            else:
+                raise NotImplementedError(f"contact kind {code}")
 
         point = torch.cat([p[0] for p in parts], 1)[:, t.inv]
         normal = torch.cat([p[1] for p in parts], 1)[:, t.inv]
@@ -935,21 +1050,53 @@ class _Tables:
         self.squat_a = f32(sh.quat[job.shape_a])
         self.squat_b = f32(sh.quat[sb_safe])
         self.plane_n = f32(cs.plane_n)
+        self.hf = f32(cs.hf_data) if cs.hf_data is not None else None
+        if self.hf is not None:  # flat offsets of a cell's four corners
+            C_hf = cs.hf_data.shape[1]
+            self.hf_corner = index([0, C_hf, 1, C_hf + 1])
         self.eye3 = torch.eye(3, dtype=torch.float32, device=dev)
+        self.box8 = f32(_BOX_CORNERS)
         self.ez = f32([0.0, 0.0, 1.0])
 
-        # narrowphase: each present kind's rows, its per-row constants, and
-        # the inverse permutation from the kinds' concatenation to row order
+        # narrowphase: each present kind's rows (of a manifold kind, the
+        # first row of each pair), its per-row constants, and the inverse
+        # permutation from the kinds' concatenation to row order
         self.kinds, self.corners, self.end_sign = [], {}, {}
+        # hull kinds: the vertex hull's (P, V, 3) and the plane hull's
+        # (P, F, 4) table rows, and each hull's static size (P, 3), which a
+        # runtime size is divided by to scale the hull
+        self.hull_v, self.hull_p = {}, {}
+        self.hull_v_size, self.hull_p_size = {}, {}
+        if cs.hull_verts is not None:
+            hull_side = {K_HULL_PLANE: ("a", None), K_HULLV_BOX: ("a", None),
+                         K_BOXV_HULL: (None, "a"), K_HULLV_HULL: ("a", "b"),
+                         K_HULLV_HULL_R: ("b", "a"), K_SPH_HULL: (None, "b"),
+                         K_CAP_HULL: (None, "b")}
         order = []
-        for code in PRIMITIVE_KINDS:
+        for code in NARROWPHASE_KINDS:
             i = np.nonzero(job.kind == code)[0]
+            if code in _HULL_MANIFOLD_KINDS:
+                i = i[job.slot[i] == 0]
             if not len(i):
                 continue
             slot = job.slot[i]
             self.kinds.append((code, index(i)))
-            order.append(i)
-            if code in (K_CAP_PLANE, K_CAP_BOX):
+            if code in _HULL_MANIFOLD_KINDS:
+                order.append(np.stack([i + c for c in range(_MANIFOLD)], 1).ravel())
+            else:
+                order.append(i)
+            if code >= K_HULL_PLANE:
+                v_side, p_side = hull_side[code]
+                shapes = {"a": job.shape_a[i], "b": np.maximum(job.shape_b[i], 0)}
+                if v_side is not None:
+                    s_v = shapes[v_side]
+                    self.hull_v[code] = f32(cs.hull_verts[sh.hull_id[s_v]])
+                    self.hull_v_size[code] = f32(np.maximum(sh.size[s_v].astype(np.float32), 1e-6))
+                if p_side is not None:
+                    s_p = shapes[p_side]
+                    self.hull_p[code] = f32(cs.hull_planes[sh.hull_id[s_p]])
+                    self.hull_p_size[code] = f32(np.maximum(sh.size[s_p].astype(np.float32), 1e-6))
+            if code in (K_CAP_PLANE, K_CAP_BOX, K_CAP_HULL):
                 self.end_sign[code] = f32(np.where(slot == 0, 1.0, -1.0))
             elif code == K_BOX_PLANE:
                 self.corners[code] = f32(_BOX_CORNERS[slot])
@@ -1174,3 +1321,52 @@ def _box_box_edge(pa, qa, size_a, pb, qb, size_b):
     use_edge = best_sep > face_sep + 1e-4
     depth = torch.where(overlap & use_edge, -best_sep, -1.0)
     return point, best_axis, depth
+
+
+def _hull_planes(verts: np.ndarray) -> np.ndarray:
+    """Outward face planes [n, d] (n.x + d <= 0 inside) of a convex vertex
+    set, near-identical faces merged (their order is np.unique's). Falls
+    back to the 6 AABB planes if qhull rejects the input (degenerate or
+    flat hulls)."""
+    try:
+        from scipy.spatial import ConvexHull
+
+        eq = ConvexHull(np.asarray(verts, np.float64)).equations
+        eq = np.unique(np.round(eq, 6), axis=0)
+        return eq.astype(np.float32)
+    except Exception:
+        lo, hi = verts.min(0), verts.max(0)
+        eq = []
+        for k in range(3):
+            n = np.zeros(3)
+            n[k] = 1.0
+            eq.append(np.concatenate([n, [-hi[k]]]))
+            eq.append(np.concatenate([-n, [lo[k]]]))
+        return np.asarray(eq, np.float32)
+
+
+def _heightfield_sdf(data, hscale, offset, p, corner):
+    """Approximate signed distance and normal of points p (..., 3) above a
+    heightfield data (R, C) in meters: bilinear height, analytic patch
+    gradient. Beyond the grid the terrain extends flat at the edge height,
+    so the gradient is zero there. `corner` holds the flat offsets [0, C, 1,
+    C + 1] of a cell's corners (x0, y0), (x0+1, y0), (x0, y0+1), (x0+1, y0+1),
+    read in one gather."""
+    R, C = data.shape
+    x_raw = (p[..., 0] - offset[0]) / hscale
+    y_raw = (p[..., 1] - offset[1]) / hscale
+    x = torch.clamp(x_raw, 0.0, R - 1 - 1e-4)
+    y = torch.clamp(y_raw, 0.0, C - 1 - 1e-4)
+    in_x = (x_raw >= 0.0) & (x_raw <= R - 1)
+    in_y = (y_raw >= 0.0) & (y_raw <= C - 1)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    flat = (x0.long() * C + y0.long())[..., None] + corner
+    h00, h10, h01, h11 = data.reshape(-1)[flat].unbind(-1)
+    h = (h00 * (1 - fx) * (1 - fy) + h10 * fx * (1 - fy)
+         + h01 * (1 - fx) * fy + h11 * fx * fy)
+    gx = torch.where(in_x, ((h10 - h00) * (1 - fy) + (h11 - h01) * fy) / hscale, 0.0)
+    gy = torch.where(in_y, ((h01 - h00) * (1 - fx) + (h11 - h10) * fx) / hscale, 0.0)
+    inv_len = 1.0 / torch.sqrt(1.0 + gx * gx + gy * gy)
+    normal = torch.stack([-gx, -gy, torch.ones_like(gx)], -1) * inv_len[..., None]
+    return (p[..., 2] - h) * inv_len, normal

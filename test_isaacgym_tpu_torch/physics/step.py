@@ -10,8 +10,7 @@ fixed-base articulations add their implicit spring-damper impulses in
 phase A.
 
 Not ported yet, and raising NotImplementedError at construction: soft
-bodies, and the contact kinds physics/contacts.py names (hulls,
-heightfields, SDF probes).
+bodies, and the contact kind physics/contacts.py names (SDF probes).
 
 With TIG_DEBUG=1 (utils/debug.py) every substep's state is checked for
 non-finite values, a host sync per substep that happens only then.

@@ -79,10 +79,8 @@ def _same(a, b) -> bool:
 
 def verify_step_purity(stepper, state, actions, params):
     """Aliasing check: a step must leave its input tensors bitwise
-    unchanged, and, where the path is deterministic, a second step of the
-    same input must give the same bits. It is not on the GPU when the
-    neighbor-list solve runs: its scatter-adds use atomics there, whose
-    summation order may change from run to run.
+    unchanged, and a second step of the same input must give the same bits
+    (every path of the step is deterministic, on the GPU too).
 
     PyTorch has no buffer donation, so the JAX package's donated-versus-kept
     comparison has no counterpart here: the re-run on the untouched input
@@ -95,9 +93,8 @@ def verify_step_purity(stepper, state, actions, params):
     for before, now in zip(saved, _leaves(inputs)):
         if not _same(before, now):
             raise AssertionError("TIG_DEBUG: the step wrote to its input tensors")
-    if not (state.root_pos.is_cuda and stepper.contact.neighbor_world is not None):
-        again = stepper.step(state, actions, params)
-        for a, b in zip(_leaves(base), _leaves(again)):
-            if not _same(a, b):
-                raise AssertionError("TIG_DEBUG: step not reproducible under purity check")
+    again = stepper.step(state, actions, params)
+    for a, b in zip(_leaves(base), _leaves(again)):
+        if not _same(a, b):
+            raise AssertionError("TIG_DEBUG: step not reproducible under purity check")
     return base

@@ -22,6 +22,10 @@ that chip_smoke.py reports against, with
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_franka_cube.py
 
+With `--divergence` it prints instead where the grasp parts (4 envs of seed
+42, 150 steps): the JAX env run op by op (jax.disable_jit) and the port,
+each against the JAX env with its physics step jitted, at every step.
+
 (XLA_FLAGS=--xla_cpu_use_fusion_emitters=false as tests/conftest.py sets
 it, if XLA:CPU hangs compiling the step; ~7 minutes, most of it the
 4096-env run). Those shares (the JAX env on the CPU, OSC, 100 steps, the
@@ -37,6 +41,7 @@ import contextlib
 import dataclasses
 import functools
 import os
+import sys
 
 import jax
 import numpy as np
@@ -210,7 +215,46 @@ def shares(gripped, box_z):
     return float(gripped.any(0).mean()), float(lifted.any(0).mean())
 
 
-if __name__ == "__main__":
+def divergence(controller, steps=150):
+    """Where the grasp parts, 4 envs of seed 42: at each step the largest
+    rel_err (|x - ref| / max(|ref|, 1) over box_pos, dof_pos, dof_vel) of
+    the JAX env run op by op (jax.disable_jit) and of the port against the
+    JAX env with its physics step jitted. Prints the first step at which
+    each exceeds the goldens' rule, ATOL."""
+    env = jax_env(controller)
+    eager = jax_env(controller)
+    env.sim.stepper.step = _jax_physics(N_ENVS)
+    port = tfc.FrankaCubeEnv(num_envs=N_ENVS, controller=controller, device="cpu")
+    one = port.rollout_fn(1)
+    a, b, c = env.init_state, eager.init_state, port.init_state
+    first = {}
+
+    def err(snap, ref):
+        return max(float(np.abs(snap[k] - ref[k]).max()) / max(float(np.abs(ref[k]).max()), 1.0)
+                   for k in ref)
+
+    with rolled_scan():
+        for k in range(1, steps + 1):
+            a = env.step_fn(a)[0]
+            with jax.disable_jit():
+                b = eager.step_fn(b)[0]
+            c = one(c)[0]
+            ref = _snap(a.sim, env.box_slot)
+            port_snap = {key: v for key, v in to_numpy(c.sim).items() if key in ("dof_pos", "dof_vel")}
+            port_snap["box_pos"] = c.sim.root_pos[:, port.box_slot].numpy()
+            e_self, e_port = err(_snap(b.sim, env.box_slot), ref), err(port_snap, ref)
+            for name, e in (("JAX op by op", e_self), ("port", e_port)):
+                if e > ATOL and name not in first:
+                    first[name] = k
+            print(f"{controller} step {k}: JAX op by op {e_self:.3e}, port {e_port:.3e} "
+                  "(of the jitted JAX env)", flush=True)
+    print(f"{controller}: first step over {ATOL}: {first or 'none'} in {steps} steps")
+
+
+if __name__ == "__main__" and "--divergence" in sys.argv:
+    for ctrl in ("osc", "ik"):
+        divergence(ctrl)
+elif __name__ == "__main__":
     out = {}
     for ctrl in CONTROLLERS:
         snaps = jax_run(ctrl)[0]

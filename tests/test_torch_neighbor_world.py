@@ -15,6 +15,8 @@ and 140 bodies whose shapes sit off their body origin, the boxes rotated.
     top-k and the rounding of the dot products decide which corners are
     kept;
   * stepped worlds, 30 steps, the goldens' rule 1e-4 * max(|ref|, 1).
+  * the side-b segment sum against `scatter_add_` (1e-6), and, on the
+    card (`-m cuda`), two solves of a 1080-box world bitwise equal.
     The aligned stack is not stepped against the JAX package: there the
     choice among near-tied corners turns on the last bit, and the JAX
     package's own jitted and op-by-op steps part after 7 steps (1.55 rad/s
@@ -45,13 +47,13 @@ def _mods(pkg):
             for m in ("core.config", "core.scene", "core.sim", "assets.primitives")]
 
 
-def _sim(pkg, b, simm):
+def _sim(pkg, b, simm, device="cpu"):
     if pkg == JAX:
         return simm.Simulator(*b.finalize())
-    return simm.Simulator(*b.finalize("cpu"), device="cpu")
+    return simm.Simulator(*b.finalize(device), device=device)
 
 
-def box_world(pkg, n_boxes, layers=1, spacing=0.25, h=0.1, seed=3):
+def box_world(pkg, n_boxes, layers=1, spacing=0.25, h=0.1, seed=3, device="cpu"):
     """tests/test_neighbor_world.py::_box_world."""
     cfg, sc, simm, prim = _mods(pkg)
     sp = cfg.SimParams(dt=1 / 60, substeps=2, gravity=(0.0, 0.0, -9.8))
@@ -76,7 +78,7 @@ def box_world(pkg, n_boxes, layers=1, spacing=0.25, h=0.1, seed=3):
                     name=f"box{i}", group=-1, filter=0,
                 )
                 i += 1
-    return _sim(pkg, b, simm)
+    return _sim(pkg, b, simm, device)
 
 
 def mixed_world(pkg):
@@ -233,3 +235,41 @@ def test_aligned_stack_stays_stacked():
     z = s.root_pos[0, :, 2]
     assert int((z > 0.25).sum()) >= 40
     assert float(s.root_linvel.abs().max()) < 0.15
+
+
+def test_segment_sum_matches_scatter_add():
+    """The solve's per-body side-b sums (`_Segments`: a stable sort by body
+    once, then float64 cumulative sums differenced at the segment ends) give
+    the scatter-add's sums, on rows whose indices miss some bodies and hit
+    others many times."""
+    rng = np.random.RandomState(4)
+    N, R, F = 3, 2000, 90
+    idx = torch.as_tensor(rng.randint(0, F - 7, (N, R)))  # bodies F-7.. get no row
+    rows = torch.as_tensor(rng.normal(size=(N, R, 2, 3)).astype(np.float32))
+    got = tnw._Segments(idx, F)(rows)
+    flat = rows.reshape(N, R, 6)
+    want = flat.new_zeros((N, F, 6)).scatter_add_(1, idx[..., None].expand(-1, -1, 6), flat)
+    assert got.shape == (N, F, 2, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.reshape(N, F, 6).numpy(), want.numpy(), rtol=0, atol=1e-6 *
+                               max(float(want.abs().max()), 1.0))
+    assert float(got[:, F - 7:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_solve_bitwise_repeatable_on_cuda():
+    """Two neighbor-world solves of a 1080-box world in contact, on the
+    card, give the same bits (no atomics in the per-body sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim = box_world(PORT, 1080, device="cuda")
+    s = sim.stepper.rollout(sim.state, sim.actions, sim.params, 20)
+    caught, solve = [], tnw.solve
+    tnw.solve = lambda *a, **kw: caught.append((a, kw)) or solve(*a, **kw)
+    try:
+        sim.stepper.step(s, sim.actions, sim.params)
+    finally:
+        tnw.solve = solve
+    args, kw = caught[0]
+    first, second = solve(*args, **kw), solve(*args, **kw)
+    assert float(first[2].abs().max()) > 1.0  # in contact
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

@@ -7,6 +7,9 @@ must build the JAX package's candidate-contact row table and fast-path
 specs.
 """
 import dataclasses
+import os
+import tempfile
+import types
 
 import numpy as np
 import pytest
@@ -162,22 +165,29 @@ def test_unported_paths_raise():
     from test_isaacgym_tpu_torch.core.sim import Simulator
     from test_isaacgym_tpu_torch.physics.step import Stepper
 
-    # contact kinds that are a later slice: a convex hull, a heightfield
+    # what is a later slice: a URDF mesh that asks for SDF collision (the
+    # hull and heightfield contact this test refused before are ported, and
+    # step in tests/test_torch_hull.py and tests/test_torch_terrain.py)
     prim, config, scene = _mods(PORT)
-    from test_isaacgym_tpu_torch.assets.types import GEOM_MESH, GeomSpec
+    from test_isaacgym_tpu_torch.assets import load_urdf
 
-    hull = prim.create_box(0.2, 0.2, 0.2)
-    corners = np.array([[x, y, z] for x in (-0.1, 0.1) for y in (-0.1, 0.1) for z in (-0.1, 0.1)])
-    hull.links[0].geoms = [GeomSpec(GEOM_MESH, vertices=corners, faces=np.zeros((0, 3), np.int32))]
+    tmp = tempfile.mkdtemp()
+    with open(os.path.join(tmp, "part.obj"), "w") as f:
+        f.write("v 0 0 0\nv 1 0 0\nv 0 1 0\nv 0 0 1\nf 1 2 3\nf 1 2 4\nf 1 3 4\nf 2 3 4\n")
+    with open(os.path.join(tmp, "part.urdf"), "w") as f:
+        f.write('<robot name="p"><link name="a"><collision><geometry><mesh filename="part.obj"/>'
+                '</geometry><sdf resolution="64"/></collision></link></robot>')
+    with pytest.raises(NotImplementedError, match="item 10"):
+        load_urdf(tmp, "part.urdf")
+    # and a mesh pair where one side carries an SDF (K_PT_SDF rows)
+    verts = np.array([[x, y, z] for x in (-0.1, 0.1) for y in (-0.1, 0.1) for z in (-0.1, 0.1)])
+    faces = np.zeros((0, 3), np.int32)
     b = scene.SceneBuilder(config.SimParams())
-    b.add_ground(config.PlaneParams())
     b.create_env((-1, -1, 0), (1, 1, 1), 1)
-    b.create_actor(0, hull, pos=(0, 0, 0.5))
-    with pytest.raises(NotImplementedError, match="hull"):
-        Stepper(b.finalize("cpu")[0], "cpu")
-    b = _prims_builder(PORT)
-    b.add_heightfield(np.zeros((8, 8), np.int16), 0.1, 0.01)
-    with pytest.raises(NotImplementedError, match="heightfield"):
+    b.create_actor(0, prim.create_mesh_asset("probe", verts, faces), pos=(0, 0, 0.5))
+    b.create_actor(0, prim.create_mesh_asset("field", verts, faces,
+                                             sdf=types.SimpleNamespace(analytic=None)))
+    with pytest.raises(NotImplementedError, match="K_PT_SDF"):
         Stepper(b.finalize("cpu")[0], "cpu")
     # the neighbor-list solve is ported (the name is the test's from before):
     # the mixed world steps, its boxes and spheres falling onto the ground
@@ -191,7 +201,7 @@ def test_unported_paths_raise():
     b = scene.SceneBuilder(config.SimParams())
     b.create_env((-1, -1, 0), (1, 1, 1), 1)
     b.create_actor(0, ball)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 11"):
         b.finalize("cpu")
 
 

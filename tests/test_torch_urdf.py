@@ -3,8 +3,8 @@
 The mesh-free Panda stand-in loads to the same AssetSpec numbers in both
 packages (links, inertials, joints, limits, dof properties), with and without
 collapse_fixed; primitive geometry parses alike; and what the port does not
-read yet (<mesh> geometry, <sdf> collision, <fem> links) raises
-NotImplementedError.
+read yet (<sdf> collision, on a box or a mesh, and <fem> links) raises
+NotImplementedError. <mesh> geometry is held by tests/test_torch_mesh.py.
 """
 import numpy as np
 import pytest
@@ -75,8 +75,10 @@ def test_primitive_geometry_and_default_inertia_like_jax(tmp_path):
 
 
 @pytest.mark.parametrize("element,what", [
-    ('<collision><geometry><mesh filename="part.obj"/></geometry></collision>', "<mesh>"),
-    ('<visual><geometry><mesh filename="part.obj"/></geometry></visual>', "<mesh>"),
+    ('<collision><geometry><mesh filename="part.obj"/></geometry><sdf resolution="256"/>'
+     '</collision>', "<sdf>"),
+    ('<visual><geometry><box size="1 1 1"/></geometry></visual>'
+     '<fem><tetmesh filename="part.tet"/></fem>', "<fem>"),
     ('<collision><geometry><box size="1 1 1"/></geometry><sdf resolution="64"/></collision>', "<sdf>"),
     ('<fem><tetmesh filename="part.tet"/></fem>', "<fem>"),
 ])

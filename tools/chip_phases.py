@@ -1,0 +1,67 @@
+#!/usr/bin/env python3
+"""Run some of chip_smoke.py's phases of one checkout, on the card.
+
+    python3 tools/chip_phases.py ROOT PHASE [PHASE ...]
+
+ROOT is a checkout of this repository (this one, or an unpacked earlier
+commit); PHASE is the name of a phase function of ROOT's chip_smoke.py that
+takes the kernel module (box_phase, pile_phase hull, ...):
+
+    box            box_phase: the 1080-box neighbor-list world
+    mixed          mixed_phase: 100 spheres beside 100 boxes
+    hull_pile      pile_phase without terrain (4096 envs)
+    terrain        pile_phase over the AnymalTerrain map (4096 envs)
+    balls_terrain  balls_terrain_phase: the 1080 balls over a bowl
+
+The kernels are built from ROOT's sources first. Each phase prints what it
+prints in chip_smoke.py (ms/step, rates, busy share, ops a step, its
+checks). Two trees compared in one call on one card, as parent, change,
+change, parent, give versions of a path measured on the same host.
+"""
+import os
+import subprocess
+import sys
+import time
+
+
+def main(root, phases):
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    import torch
+    from test_isaacgym_tpu_torch.ops import _kernels
+    from test_isaacgym_tpu_torch.ops import sphere_world as sw
+
+    if not torch.cuda.is_available():
+        print("chip_phases: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs.log(cs.card_line())
+    cs.log(f"tree {root} at {subprocess.run(['git', '-C', root, 'log', '-1', '--format=%h'], capture_output=True, text=True).stdout.strip() or 'an unpacked archive'}")
+    t = time.perf_counter()
+    _kernels.build("sphere_world")
+    cs.log(f"build: sphere_world {time.perf_counter() - t:.2f} s")
+    for name in phases:
+        t = time.perf_counter()
+        if name == "box":
+            cs.box_phase(_kernels)
+        elif name == "mixed":
+            cs.mixed_phase(_kernels, sw)
+        elif name == "hull_pile":
+            cs.pile_phase(_kernels, "hull_pile4096")
+        elif name == "terrain":
+            from test_isaacgym_tpu_torch.envs import pile
+
+            cs.pile_phase(_kernels, "terrain4096", pile.anymal_terrain())
+        elif name == "balls_terrain":
+            cs.balls_terrain_phase(_kernels, sw)
+        else:
+            raise SystemExit(f"unknown phase {name!r}")
+        cs.log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) < 3:
+        raise SystemExit(__doc__)
+    sys.exit(main(sys.argv[1], sys.argv[2:]))
