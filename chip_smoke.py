@@ -37,7 +37,17 @@ in each of 4096 envs on a ground plane (hull_pile4096) and over the 1200 x
 over a terrain bowl (balls_terrain1080), where the sphere-world kernel runs
 without its ground beside 1080 sphere-terrain rows of the contact table
 (launches counted exactly, the kernel held against its plain version on
-that world's piled inputs). It prints:
+that world's piled inputs); then the SDF paths, each with its counts read
+around its run (the sphere-world count must stay 0): bench.py's nut_bolt
+config, 1024 envs of a nut spun down the procedural bolt for 240 steps
+(envs/nut_bolt.py, the code-built nut stand-in's probes against the bolt's
+closed form; every env's descent held to test_nut_threads_down's bar,
+a 2-env run to nut_bolt_standin.npz, a TIG_DEBUG step), and the reference
+example's 512 envs of the arm-driven screw FSM from the nut threaded on the
+bolt (envs/franka_nut_bolt.py: both SDF families, the trilinear lookup of
+the nut's voxel grid at full width; its FSM shares and mean nut descent
+held to the JAX env's at 512 envs, both starts at 2 envs to
+franka_nut_bolt_standin.npz). It prints:
   * the card's name and power limit (nvidia-smi);
   * per-phase numbers (build seconds, kernel and plain times, each launch's
     share of a solve and one sweep's cost, ball-steps/s, Franka env-steps/s
@@ -150,6 +160,16 @@ TERRAIN_BELOW, TERRAIN_ABOVE, TERRAIN_REACH = 0.05, 0.45, 0.1
 # pyramids: the sphere-world kernel without its ground, 240 steps; no ball
 # centre more than BALL_SINK m under the terrain (test_gymapi.py's bound)
 BALLS_TERRAIN_STEPS, BALL_SINK = 240, 0.05
+# the SDF paths: bench.py's nut_bolt@1024 (240 steps at dt 1/120: two turns
+# at 1 rev/s), every env's descent within NUT_RTOL of 2 pitches with the
+# envs agreeing within NUT_SPREAD m (tests/test_nut_bolt.py::
+# test_nut_threads_down); and the reference example's franka_nut_bolt at 512
+# envs from the bolt start, FNB_STEPS steps (in the JAX env every env is in
+# S_SCREW from ~step 90 to ~205), each FSM state's share within
+# FNB_SHARE_SLACK of the JAX env's and the mean nut descent within
+# FNB_DESCENT_RTOL of its (both stored in franka_nut_bolt_standin.npz)
+NUT_ENVS, NUT_STEPS, NUT_RTOL, NUT_SPREAD = 1024, 240, 0.20, 5e-4
+FNB_ENVS, FNB_STEPS, FNB_SHARE_SLACK, FNB_DESCENT_RTOL = 512, 150, 0.02, 0.20
 # the device of every phase's envs ("cpu" only in a rehearsal of the phases on the CPU)
 DEV = "cuda"
 # sphere-world launches of each main path's timed run, by path
@@ -445,12 +465,13 @@ def franka_phase(kernels) -> None:
 
 
 def cube_layers(env, ps) -> None:
-    """Ops and host ms (time_layers) of the layers of a franka_cube
-    step: the control, and of a substep phase A (body cache reused, then
-    with FK), phase B, phase C's inputs (current poses, link Jacobians,
-    A^-1), narrowphase, the solve's set-up (narrowphase included), one
-    Jacobi sweep (a substep runs `iters` of them, then a few ops of
-    read-back and contact force), phase D; and the refresh."""
+    """Ops and host ms (time_layers) of the layers of a step of an arm
+    env with free objects (franka_cube, franka_nut_bolt): the control, and
+    of a substep phase A (body cache reused, then with FK), phase B, phase
+    C's inputs (current poses, link Jacobians, A^-1), narrowphase, the
+    solve's set-up (narrowphase included), one Jacobi sweep (a substep runs
+    `iters` of them, then a few ops of read-back and contact force), phase
+    D; and the refresh."""
     stp, params = env.sim.stepper, env.sim.params
     state = ps.sim
     actions = env.control(ps)[0]
@@ -463,10 +484,10 @@ def cube_layers(env, ps) -> None:
                   params, stp.h)
     s = c.prepare(*solve_args)
     layers = {
-        "control (FSM, jacobian, mass matrix, OSC solves)": lambda: env.control(ps),
+        "control (FSM, jacobian, solves)": lambda: env.control(ps),
         "phase A, body cache reused": lambda: stp.group_velocities(state, actions, params, True),
         "phase A with FK": lambda: stp.group_velocities(state, actions, params, False),
-        "phase B (the cube)": lambda: stp.free_velocities(state, actions, params),
+        "phase B (free bodies)": lambda: stp.free_velocities(state, actions, params),
         "phase C inputs (poses, link jacobians, A^-1)": lambda: stp.contact_inputs(state, gd, fd),
         "narrowphase": lambda: c.narrowphase(cur_bp, cur_bq, params),
         "solve set-up (narrowphase included)": lambda: c.prepare(*solve_args),
@@ -1050,6 +1071,151 @@ def balls_terrain_phase(kernels, sw) -> float:
     return err
 
 
+def sdf_layer(c, state, params) -> None:
+    """Ops and host ms (time_layers) of the SDF narrowphase alone, on its
+    rows' shape poses: the part of the narrowphase that pile_layers and
+    cube_layers time whole."""
+    poses = c.shape_poses(state.body_pos, state.body_quat, params)
+    fams = ", ".join("voxel" if fn is None else "closed form"
+                     for _, fn in c._tables(state.body_pos.device).sdf.families)
+    time_layers({f"SDF narrowphase ({fams})": lambda: c.sdf_rows(*poses)})
+
+
+def nut_bolt_phase(kernels) -> None:
+    """bench.py's nut_bolt@1024: a step with host syncs made errors,
+    NUT_STEPS timed steps with the kernels' counts read around them (the
+    sphere-world count must stay 0), every env's descent against
+    test_nut_threads_down's bar, a profile, the SDF layers' ops and host
+    ms, a TIG_DEBUG step, and 2 envs against nut_bolt_standin.npz."""
+    from test_isaacgym_tpu_torch.envs.nut_bolt import NutBoltEnv
+    from test_isaacgym_tpu_torch.utils import debug
+
+    name = f"nut_bolt{NUT_ENVS}"
+    t = time.perf_counter()
+    env = NutBoltEnv(num_envs=NUT_ENVS, device=DEV)
+    sim = env.sim
+    c = sim.stepper.contact
+    kinds = dict(zip(*np.unique(c.job.kind, return_counts=True)))
+    log(f"{name}: {NUT_ENVS} envs built in {time.perf_counter() - t:.2f} s, {c.num_contacts} "
+        f"contact rows an env (rows of each kind: {({int(k): int(v) for k, v in kinds.items()})}), "
+        f"{c.sdf_probes.shape[1]} probes a pair direction")
+    if 17 not in kinds or c.sphere_world is not None:
+        raise RuntimeError(f"{name} has no SDF rows on the table")
+    s0 = sim.state
+    env.rollout(1, s0)  # warm
+    log(f"{name}: {count_ops(lambda: env.rollout(1, s0))} non-view PyTorch ops a step")
+    assert_sync_free(lambda: env.rollout(1, s0), name)
+    s, step_ms, launches = timed(lambda: env.rollout(NUT_STEPS, s0), kernels, name, NUT_STEPS,
+                                 NUT_ENVS, "env")
+    if launches.get("sphere_world", 0):
+        raise RuntimeError(f"{name} launched the sphere-world kernel: {launches}")
+    assert_finite(s, name)
+    dz = (env.nut_height(s) - env.nut_height(s0)).cpu().numpy()
+    want = 2 * env.pitch * env.spin / (2 * np.pi)
+    golden = np.load(port_data("nut_bolt_standin.npz"))
+    log(f"{name} after {NUT_STEPS} steps: nut descent {dz.min():.6f} to {dz.max():.6f} m (mean "
+        f"{dz.mean():.6f}), 2 pitches {want:.6f} (bound: within {NUT_RTOL:.0%}, spread < "
+        f"{NUT_SPREAD}); JAX package on the CPU, the same {int(golden['big_envs'])} envs: "
+        f"{float(golden['jax_descent_min']):.6f} to {float(golden['jax_descent_max']):.6f}")
+    if not (np.abs(dz - want).max() <= NUT_RTOL * abs(want) and np.ptp(dz) < NUT_SPREAD):
+        raise RuntimeError(f"{name}: a nut did not thread down two pitches")
+    profile_steps(lambda st: env.rollout(10, st), s, step_ms, 10)
+    pile_layers(sim, s)
+    sdf_layer(c, s, sim.params)
+
+    os.environ["TIG_DEBUG"] = "1"
+    try:
+        small = NutBoltEnv(num_envs=4, device=DEV)
+        debug.verify_step_purity(small.sim.stepper, small._spun(small.sim.state),
+                                 small.sim.actions, small.sim.params)
+    finally:
+        del os.environ["TIG_DEBUG"]
+    log(f"{name}: verify_step_purity under TIG_DEBUG=1 passed (the table asserts on SDF rows)")
+
+    small = NutBoltEnv(num_envs=int(golden["num_envs"]), device=DEV)
+    every = int(golden["every"])
+    worst = golden_err({"nut_pos": golden["nut_pos"], "nut_quat": golden["nut_quat"]},
+                       small.sim.state,
+                       lambda st: {"nut_pos": st.root_pos[:, small.nut_slot],
+                                   "nut_quat": st.root_quat[:, small.nut_slot]},
+                       lambda st: small.rollout(every, st))
+    log(f"{name} {int(golden['num_envs'])} envs vs nut_bolt_standin.npz (nut pose every {every} "
+        f"steps to step {every * (len(golden['nut_pos']) - 1)}): max |err| of largest "
+        f"magnitude {worst:.3e}")
+    if worst > GOLDEN_TOL:
+        raise RuntimeError(f"{name} departs from its golden: {worst:.3e} > {GOLDEN_TOL}")
+
+
+def franka_nut_bolt_phase(kernels) -> None:
+    """The reference example's franka_nut_bolt at FNB_ENVS envs from the
+    bolt start: a step with host syncs made errors, FNB_STEPS timed steps
+    with the kernels' counts read around them (the sphere-world count must
+    stay 0), the FSM shares and mean nut descent against the JAX env's, a
+    profile, the layers' ops and host ms, and both starts at 2 envs
+    against franka_nut_bolt_standin.npz, FSM states included."""
+    from test_isaacgym_tpu_torch.envs.franka_nut_bolt import NUM_STATES, FrankaNutBoltEnv
+
+    name = f"franka_nut_bolt{FNB_ENVS}"
+    t = time.perf_counter()
+    env = FrankaNutBoltEnv(num_envs=FNB_ENVS, start_on_bolt=True, device=DEV)
+    c = env.sim.stepper.contact
+    kinds = dict(zip(*np.unique(c.job.kind, return_counts=True)))
+    log(f"{name}: {FNB_ENVS} envs built in {time.perf_counter() - t:.2f} s, {c.num_contacts} "
+        f"contact rows an env (rows of each kind: {({int(k): int(v) for k, v in kinds.items()})}); "
+        f"SDF grids on the device: {tuple(c.sdf_data.shape)} f32 "
+        f"({c.sdf_data.nbytes / 1e6:.1f} MB)")
+    if len(c.sdf_voxel_q) != 1 or len(c.sdf_analytic_groups) != 1:
+        raise RuntimeError(f"{name} does not run both SDF families")
+    ps = env.init_state
+    env.rollout(1, ps)  # warm
+    log(f"{name}: {count_ops(lambda: env.step_fn(ps))} non-view PyTorch ops a step")
+    assert_sync_free(lambda: env.step_fn(ps), name)
+    (end, (fsm_tr, _)), step_ms, launches = timed(lambda: env.rollout(FNB_STEPS, ps), kernels,
+                                                   name, FNB_STEPS, FNB_ENVS, "env")
+    if launches.get("sphere_world", 0):
+        raise RuntimeError(f"{name} launched the sphere-world kernel: {launches}")
+    assert_finite(end.sim, name)
+    assert_in_limits(end.sim, env.sim.params, name)
+    golden = np.load(port_data("franka_nut_bolt_standin.npz"))
+    if int(golden["big_envs"]) != FNB_ENVS or int(golden["big_steps"]) != FNB_STEPS:
+        raise RuntimeError(f"{name}: the golden's JAX numbers are of another run")
+    shares = np.bincount(end.fsm.cpu().numpy(), minlength=NUM_STATES) / FNB_ENVS
+    descent = float((env.nut_height_now(end) - env.nut_height_now(ps)).mean())
+    jax_shares, jax_descent = golden["jax_shares"], float(golden["jax_descent"])
+    log(f"{name} after {FNB_STEPS} steps: FSM shares {np.round(shares, 6).tolist()} (JAX env on "
+        f"the CPU {np.round(jax_shares, 6).tolist()}), mean nut descent {descent:.6e} m (JAX "
+        f"{jax_descent:.6e})")
+    if np.abs(shares - jax_shares).max() > FNB_SHARE_SLACK:
+        raise RuntimeError(f"{name}: FSM shares depart from the JAX env's by more than "
+                           f"{FNB_SHARE_SLACK}")
+    if abs(descent - jax_descent) > FNB_DESCENT_RTOL * abs(jax_descent):
+        raise RuntimeError(f"{name}: mean nut descent {descent:.6e} not within "
+                           f"{FNB_DESCENT_RTOL:.0%} of the JAX env's {jax_descent:.6e}")
+    profile_steps(lambda st: env.rollout(5, st)[0], end, step_ms, 5)
+    cube_layers(env, end)
+    sdf_layer(c, end.sim, env.sim.params)
+
+    for start in ("table", "bolt"):
+        small = FrankaNutBoltEnv(num_envs=2, start_on_bolt=start == "bolt", device=DEV)
+        n = int(golden[f"{start}_self_agree"])
+        st, worst, fsm = small.init_state, 0.0, []
+        for k in range(n + 1):
+            for key, v in (("nut_pos", st.sim.root_pos[:, small.nut_slot]),
+                           ("dof_pos", st.sim.dof_pos), ("dof_vel", st.sim.dof_vel)):
+                want = golden[f"{start}_{key}"][k]
+                err = float(np.abs(v.cpu().numpy() - want).max())
+                worst = max(worst, err / max(float(np.abs(want).max()), 1.0))
+            if k < n:
+                st, (f, _) = small.step_fn(st)
+                fsm.append(f.cpu().numpy())
+        same = np.array_equal(np.asarray(fsm).reshape(n, 2), golden[f"{start}_fsm"])
+        log(f"{name} {start} start, 2 envs vs franka_nut_bolt_standin.npz (nut_pos, dof_pos, "
+            f"dof_vel every step to step {n}): max |err| of largest magnitude {worst:.3e}, FSM "
+            f"states {'equal' if same else 'DIFFER'}")
+        if worst > GOLDEN_TOL or not same:
+            raise RuntimeError(f"{name} {start} departs from its golden")
+
+
 def cube_phase(kernels) -> None:
     """The franka_cube pick path at CUBE_ENVS envs under OSC: a timed run
     with the hand-written kernels' counts read around it (the path has none,
@@ -1234,6 +1400,11 @@ def main() -> int:
     pile_phase(_kernels, "terrain4096", terrain)
     err_terrain = balls_terrain_phase(_kernels, sw)
     log(f"sphere_world vs plain on the balls over terrain: max |err| {err_terrain:.3e}")
+
+    # ---- 9. SDF contact: the nut spun down the bolt, and the arm-driven
+    # screw FSM, each with its own counts ----
+    nut_bolt_phase(_kernels)
+    franka_nut_bolt_phase(_kernels)
 
     log("sphere_world launches by main path: "
         + ", ".join(f"{k} {v}" for k, v in PATH_LAUNCHES.items()))

@@ -9,12 +9,13 @@ against. Entry points take an explicit `device` and default to "cuda".
 Ported so far: free and static bodies with the dense sphere-world and the
 neighbor-list contact paths; articulations (kinematics, dense CRBA/RNEA
 dynamics, the articulated step with attractors, the Simulator's Jacobian and
-mass-matrix functions); the contact table of primitive shapes, convex hulls
-and heightfield terrain; mesh loading (OBJ, STL, DAE) into convex hulls,
-`create_mesh_asset` and the URDF importer with <mesh> geometry; the
-terrain_utils generators; OSC/IK control, CCLVF guidance, the visual servo
-and the camera projection; the TIG_DEBUG checks (utils/debug.py); and the
-envs and scenes that drive them:
+mass-matrix functions); the contact table of primitive shapes, convex hulls,
+heightfield terrain and SDF probes (voxel grids and closed forms); mesh
+loading (OBJ, STL, DAE) into convex hulls, `create_mesh_asset` and the URDF
+importer with <mesh> geometry and <sdf> collision; the SDF grids and the
+procedural bolt (assets/sdf.py); the terrain_utils generators; OSC/IK
+control, CCLVF guidance, the visual servo and the camera projection; the
+TIG_DEBUG checks (utils/debug.py); and the envs and scenes that drive them:
   - `test_isaacgym_tpu_torch.envs.balls.BallsEnv`
   - `test_isaacgym_tpu_torch.envs.franka.FrankaOscEnv` (the flagship; its
     default asset is the mesh-free Panda stand-in in assets/data/)
@@ -22,10 +23,15 @@ envs and scenes that drive them:
   - `test_isaacgym_tpu_torch.envs.uav_car.UavCarEnv`
   - `test_isaacgym_tpu_torch.envs.pile` (object piles on a ground or on
     the AnymalTerrain map)
+  - `test_isaacgym_tpu_torch.envs.nut_bolt.NutBoltEnv` (a nut spun down the
+    procedural bolt; its default asset is the code-built nut stand-in in
+    assets/data/)
+  - `test_isaacgym_tpu_torch.envs.franka_nut_bolt.FrankaNutBoltEnv` (the
+    arm-driven pick, place and screw FSM)
   - `test_isaacgym_tpu_torch.core.sim.Simulator`
   - `test_isaacgym_tpu_torch.core.scene.SceneBuilder`
-Not ported yet, and raising NotImplementedError: SDF contact and soft
-bodies; rendering and the gym facade are not in the package yet.
+Not ported yet, and raising NotImplementedError: soft bodies (<fem> links);
+rendering and the gym facade are not in the package yet.
 """
 
 __version__ = "0.1.0"

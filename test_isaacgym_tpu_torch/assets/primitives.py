@@ -52,10 +52,9 @@ def create_mesh_asset(
     **opts,
 ) -> AssetSpec:
     """Single-body asset from a triangle mesh, optionally carrying a
-    prebuilt SDF grid for SDF collision. Surface probes are FPS-sampled from
-    the FULL mesh before hulling, so concave detail (thread flanks) stays
-    collidable. A mesh that carries an SDF makes the contact table raise
-    until the SDF slice is ported (ROADMAP.md Queue 1, item 10)."""
+    prebuilt SDF grid (assets.sdf.SdfGrid) for SDF collision. Surface probes
+    are FPS-sampled from the FULL mesh before hulling, so concave detail
+    (thread flanks) stays collidable."""
     from .mesh import convex_hull_vertices
     from .sdf import farthest_point_sample
     from .types import GEOM_MESH

@@ -11,9 +11,11 @@ Port of test_isaacgym_tpu/assets/urdf.py (host numpy, no torch). Handles:
     dynamics
   - mimic-free trees only
   - collapse_fixed (AssetOptions.collapse_fixed_joints)
-`<sdf>` collision requests (ROADMAP.md Queue 1, item 10: SDF contact and
-nut-bolt) and `<fem>` soft-body links (item 11) are later slices of the
-port: a file that has them raises NotImplementedError. So is
+  - `<sdf resolution="N"/>` in a mesh collision element: a voxel SDF grid of
+    the full mesh (quantized to assets.sdf.SDF_RES) and 256 surface probes,
+    both taken before hulling (the reference's nut-bolt URDFs)
+`<fem>` soft-body links (ROADMAP.md Queue 1, item 11) are a later slice of
+the port: a file that has them raises NotImplementedError. So is
 `use_mesh_materials` (item 12).
 """
 from __future__ import annotations
@@ -154,6 +156,23 @@ def _parse_geometry(geo_el, origin_el, urdf_dir, asset_root, load_meshes):
     return None
 
 
+_sdf_res_warned = set()
+
+
+def _log_sdf_res_once(path: str, requested: int) -> None:
+    """All SDF grids in a scene stack into one (K, R, R, R) device tensor, so
+    per-asset `<sdf resolution>` requests are quantized to assets.sdf.SDF_RES;
+    say so once per asset instead of silently ignoring the request."""
+    if path not in _sdf_res_warned:
+        _sdf_res_warned.add(path)
+        from .sdf import SDF_RES
+
+        print(
+            f"[test_isaacgym_tpu_torch] {os.path.basename(path)}: <sdf resolution="
+            f"{requested}> quantized to the scene-wide grid size {SDF_RES}"
+        )
+
+
 def load_urdf(
     asset_root: str,
     filename: str,
@@ -201,15 +220,25 @@ def load_urdf(
                 l.inertia = np.eye(3) * 1e-3
             l.explicit_inertial = l.mass > 0
         for c in el.findall("collision"):
-            if c.find("sdf") is not None:
-                raise NotImplementedError(
-                    f"{path}: link {name!r} asks for <sdf> collision, not ported to "
-                    "the torch package yet (ROADMAP.md Queue 1, item 10: SDF contact "
-                    "and nut-bolt)"
-                )
             g = _parse_geometry(c, c.find("origin"), urdf_dir, asset_root, load_meshes)
             if g is not None:
                 if g.kind == GEOM_MESH and g.vertices is not None:
+                    sdf_el = c.find("sdf")
+                    if sdf_el is not None:
+                        # grid and surface probes of the FULL mesh (concave
+                        # thread detail) before convex hulling, in the
+                        # mesh-AABB-centered frame the scene's shape origin
+                        # uses (GeomSpec.center applies the collision
+                        # <origin> offset)
+                        from .sdf import SDF_RES, farthest_point_sample, sdf_from_mesh
+
+                        g.sdf_resolution = int(sdf_el.get("resolution", 256))
+                        if g.sdf_resolution != SDF_RES:
+                            _log_sdf_res_once(path, g.sdf_resolution)
+                        g.sdf = sdf_from_mesh(g.vertices, g.faces)
+                        g.sdf_samples = farthest_point_sample(
+                            g.vertices - g.mesh_center(), 256
+                        )
                     if g.faces is not None and len(g.faces):
                         # keep the full mesh for the visual triangle pass
                         # (AABB-centered = shape frame) before hulling

@@ -167,13 +167,15 @@ def zero_actions(
 
 
 def from_numpy(fields: dict, cls, device):
-    """Build a `cls` (SimState, PhysParams or Actions) on `device` from a dict
-    of numpy arrays keyed by field name — the carry-across from the JAX
-    package (`{k: np.asarray(v) for k, v in jax_state._asdict().items()}`).
-    64-bit numbers narrow to 32 bits as jax does without x64; other dtypes
-    (float32, int32, bool) are kept; None stays None; fields missing from
-    the dict take the class default. The tensors are copies: they never
-    alias the caller's arrays."""
+    """Build a `cls` (SimState, PhysParams, Actions or an env's state) on
+    `device` from a dict of numpy arrays keyed by field name — the
+    carry-across from the JAX package (`{k: np.asarray(v) for k, v in
+    jax_state._asdict().items()}`). 64-bit numbers narrow to 32 bits as jax
+    does without x64; other dtypes (float32, int32, bool) are kept; None
+    stays None; fields missing from the dict take the class default; a field
+    that holds a state of its own (an env state's `sim`) takes one already
+    built by `from_numpy`. The tensors are copies: they never alias the
+    caller's arrays."""
     unknown = set(fields) - set(cls._fields)
     if unknown:
         raise KeyError(f"{cls.__name__} has no fields {sorted(unknown)}")
@@ -182,6 +184,11 @@ def from_numpy(fields: dict, cls, device):
     for k, v in fields.items():
         if v is None:
             out[k] = None
+            continue
+        if isinstance(v, tuple) and hasattr(v, "_fields"):  # a nested state
+            if not all(x is None or isinstance(x, torch.Tensor) for x in v):
+                raise TypeError(f"{cls.__name__}.{k}: build it with from_numpy first")
+            out[k] = v
             continue
         a = np.asarray(v)
         a = np.array(a, dtype=narrow.get(a.dtype, a.dtype), order="C", copy=True)

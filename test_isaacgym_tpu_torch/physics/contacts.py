@@ -13,14 +13,16 @@ Port of test_isaacgym_tpu/physics/contacts.py:
     deepest edge-edge pair; and the convex-hull kinds, each a manifold of
     the 4 deepest candidates of a shape pair (hull vertices against the
     ground, a box or another hull; box corners in a hull) or a sphere or
-    capsule end against a hull's face planes;
+    capsule end against a hull's face planes; and the SDF probe rows of
+    kind 17 (`_sdf_narrowphase`): a mesh's surface probes pushed through
+    the other mesh's signed-distance field, a voxel grid read by trilinear
+    interpolation (`_sdf_trilinear`) or a closed form differentiated by
+    autograd, 16 rows a pair direction;
   * `ContactSolver.solve` runs the dense sphere-world fast path
     (ops/sphere_world.py), the neighbor-list solve of large mixed
     box/sphere worlds (ops/neighbor_world.py), then the relaxed-Jacobi
     solve of the table over FREE, LINK and STATIC sides with cross-step
     warm start.
-SDF probe rows (ROADMAP.md Queue 1, item 10) raise NotImplementedError at
-construction.
 
 Each contact side is one of
   FREE   — free rigid body: responds via (1/m, I^-1) impulses,
@@ -89,12 +91,14 @@ K_SPH_HULL = 15  # sphere(a) vs hull(b)
 K_CAP_HULL = 16  # capsule(a) endpoint spheres vs hull(b)
 K_PT_SDF = 17  # surface probes of mesh(a) vs voxel SDF of mesh(b)
 # the kinds this package's narrowphase computes, in the JAX package's order
-NARROWPHASE_KINDS = tuple(range(K_CAP_HULL + 1))
+NARROWPHASE_KINDS = tuple(range(K_PT_SDF + 1))
 # kinds whose shape pair emits _MANIFOLD consecutive rows, computed once a pair
 _HULL_MANIFOLD_KINDS = (K_HULL_PLANE, K_HULLV_BOX, K_BOXV_HULL, K_HULLV_HULL, K_HULLV_HULL_R)
 
 _MANIFOLD = 4  # contact manifold size for hull vertex kinds
 _SDF_MANIFOLD = 16  # manifold size for SDF probe kinds
+# rows a pair emits, of the kinds that compute a pair's rows at once
+_ROWS_OF_PAIR = {**{k: _MANIFOLD for k in _HULL_MANIFOLD_KINDS}, K_PT_SDF: _SDF_MANIFOLD}
 
 # most shape pairs the static contact table takes by default (the JAX
 # package's default `max_pair_shapes`)
@@ -319,6 +323,11 @@ class ContactSolver:
                 "Raise max_pair_shapes explicitly if the memory is acceptable."
             )
 
+        # SDF pair directions, appended in ROW ORDER (each entry = one group
+        # of _SDF_MANIFOLD K_PT_SDF rows): (grid index, probe array (P,3),
+        # analytic fn or None)
+        sdf_pair_meta: List[tuple] = []
+
         def _has_sdf(s):
             return (
                 sh.sdf_id is not None
@@ -355,6 +364,8 @@ class ContactSolver:
                 if ana and not scene.sim_params.physx.sdf_bidirectional:
                     sdf_dirs = ana
                 for sa, ea, sb_, eb in sdf_dirs:
+                    gi = int(sh.sdf_id[sb_])
+                    sdf_pair_meta.append((gi, _probes_of(sa), scene.sdfs[gi].analytic))
                     for c in range(_SDF_MANIFOLD):
                         rows.append((ea, eb, K_PT_SDF, sa, sb_, c))
                 continue
@@ -404,15 +415,6 @@ class ContactSolver:
             ib = np.nonzero((self.job.b.type == T_LINK) & (self.job.b.group == g_id))[0]
             self.link_lists.append((ia.astype(np.int32), ib.astype(np.int32)))
         self.any_link = any(len(ia) + len(ib) for ia, ib in self.link_lists)
-
-        # what this package's narrowphase does not compute yet
-        kinds = set(self.job.kind.tolist())
-        if K_PT_SDF in kinds:
-            raise NotImplementedError(
-                "this scene's contact table has SDF probe rows (K_PT_SDF): "
-                "not ported to the torch package yet (ROADMAP.md Queue 1, "
-                "item 10: SDF contact and nut-bolt)"
-            )
 
         # static one-hot (B_env, C) matrices: per-body segment reductions in
         # the solve are matmuls with them instead of scatter-adds
@@ -472,6 +474,54 @@ class ContactSolver:
                 planes.append(np.concatenate([eq, peq], 0))
             self.hull_verts = np.stack(verts).astype(np.float32)
             self.hull_planes = np.stack(planes).astype(np.float32)
+
+        # SDF tables: the pair directions partitioned into evaluation
+        # families (voxel rows gather from one stacked (K, R, R, R) grid;
+        # analytic rows evaluate their closed form, one family per distinct
+        # fn), and every direction's probes padded to one length
+        self.sdf_probes = self.sdf_data = None
+        if sdf_pair_meta:
+            voxel_q = [qi for qi, m in enumerate(sdf_pair_meta) if m[2] is None]
+            self.sdf_voxel_q = np.asarray(voxel_q, np.int32)
+            ana_groups: dict = {}
+            for qi, m in enumerate(sdf_pair_meta):
+                if m[2] is not None:
+                    ana_groups.setdefault(id(m[2]), (m[2], []))[1].append(qi)
+            self.sdf_analytic_groups = [
+                (fn, np.asarray(qs, np.int32)) for fn, qs in ana_groups.values()
+            ]
+            if voxel_q:
+                # stack only the grids voxel rows reference (an analytic-only
+                # grid never uploads its voxels)
+                gids = sorted({sdf_pair_meta[qi][0] for qi in voxel_q})
+                remap = {g: i for i, g in enumerate(gids)}
+                grids = [scene.sdfs[g] for g in gids]
+                R = grids[0].data.shape[0]
+                assert all(
+                    g.data.shape == (R, R, R) for g in grids
+                ), "all SDF grids in a scene must share one resolution"
+                self.sdf_data = np.stack([g.data for g in grids]).astype(np.float32)
+                self.sdf_origin = np.stack([g.origin for g in grids]).astype(np.float32)
+                self.sdf_spacing = np.stack([g.spacing for g in grids]).astype(np.float32)
+                self.sdf_voxel_grid = np.asarray(
+                    [remap[sdf_pair_meta[qi][0]] for qi in voxel_q], np.int32
+                )
+            # a multiple of the manifold size: selection is strided-grouped
+            # (slot m picks over probes {g*M + m}), so the length is G*M
+            M = _SDF_MANIFOLD
+            pmax = max(len(m[1]) for m in sdf_pair_meta)
+            pmax = -(-pmax // M) * M
+            probes = []
+            for _, pr, _fn in sdf_pair_meta:
+                pr = np.asarray(pr, np.float32)
+                if len(pr) < pmax:
+                    # pad with a FAR sentinel (outside any grid -> phi >> 0,
+                    # never a contact), not repeated probes, which would put
+                    # duplicate impulses on one point
+                    far = np.full((pmax - len(pr), 3), 1e3, np.float32)
+                    pr = np.concatenate([pr, far], 0)
+                probes.append(pr)
+            self.sdf_probes = np.stack(probes)
 
         if device is not None:
             self._tables(torch.empty(0, device=device).device)
@@ -565,13 +615,9 @@ class ContactSolver:
         return free_v, free_w, cf_base.index_add(1, bidx, cf_s)
 
     # ------------------------------------------------------------------
-    def narrowphase(self, body_pos, body_quat, params):
-        """(point, normal(b->a), depth, active) for every candidate contact,
-        given CURRENT body poses (N, B, 3/4).
-
-        Each contact kind computes only over its own static row subset; the
-        kinds' results are concatenated and put in row order by one static
-        inverse-permutation gather per output."""
+    def shape_poses(self, body_pos, body_quat, params):
+        """(pa, qa, pb, qb, size_a, size_b) (N, C, .): each row's side-a and
+        side-b shape pose and runtime size, from the body poses."""
         t = self._tables(body_pos.device)
 
         def shape_pose(owner, shape, squat):
@@ -580,8 +626,26 @@ class ContactSolver:
 
         pa, qa = shape_pose(t.owner_a, t.shape_a, t.squat_a)
         pb, qb = shape_pose(t.owner_b, t.shape_b, t.squat_b)
-        size_a = params.shape_size[:, t.shape_a]
-        size_b = params.shape_size[:, t.shape_b]
+        return pa, qa, pb, qb, params.shape_size[:, t.shape_a], params.shape_size[:, t.shape_b]
+
+    def sdf_rows(self, pa, qa, pb, qb, size_a, size_b):
+        """(point, normal, depth) of the K_PT_SDF rows, q-major, from
+        `shape_poses`: the SDF narrowphase alone."""
+        t = self._tables(pa.device)
+        i = dict(t.kinds)[K_PT_SDF]
+        return _sdf_narrowphase(t.sdf, pa[:, i], qa[:, i], pb[:, i], qb[:, i], size_a[:, i],
+                                size_b[:, i])
+
+    # ------------------------------------------------------------------
+    def narrowphase(self, body_pos, body_quat, params):
+        """(point, normal(b->a), depth, active) for every candidate contact,
+        given CURRENT body poses (N, B, 3/4).
+
+        Each contact kind computes only over its own static row subset; the
+        kinds' results are concatenated and put in row order by one static
+        inverse-permutation gather per output."""
+        t = self._tables(body_pos.device)
+        pa, qa, pb, qb, size_a, size_b = self.shape_poses(body_pos, body_quat, params)
         pn, pd = t.plane_n, float(self.plane_d)
 
         if t.hf is not None:
@@ -776,6 +840,8 @@ class ContactSolver:
                 sd, n_out = in_hull(code, i, pb, qb, size_b, c[:, :, None])
                 n1 = n_out[:, :, 0]
                 parts.append((c - n1 * r[..., None], n1, r - sd[:, :, 0]))
+            elif code == K_PT_SDF:
+                parts.append(self.sdf_rows(pa, qa, pb, qb, size_a, size_b))
             else:
                 raise NotImplementedError(f"contact kind {code}")
 
@@ -1075,17 +1141,19 @@ class _Tables:
         order = []
         for code in NARROWPHASE_KINDS:
             i = np.nonzero(job.kind == code)[0]
-            if code in _HULL_MANIFOLD_KINDS:
+            if code in _ROWS_OF_PAIR:
                 i = i[job.slot[i] == 0]
             if not len(i):
                 continue
             slot = job.slot[i]
             self.kinds.append((code, index(i)))
-            if code in _HULL_MANIFOLD_KINDS:
-                order.append(np.stack([i + c for c in range(_MANIFOLD)], 1).ravel())
+            if code in _ROWS_OF_PAIR:  # a pair's rows are consecutive
+                order.append(np.stack([i + c for c in range(_ROWS_OF_PAIR[code])], 1).ravel())
             else:
                 order.append(i)
-            if code >= K_HULL_PLANE:
+            if code == K_PT_SDF:
+                self.sdf = _SdfTables(cs, i, dev)
+            if K_HULL_PLANE <= code <= K_CAP_HULL:
                 v_side, p_side = hull_side[code]
                 shapes = {"a": job.shape_a[i], "b": np.maximum(job.shape_b[i], 0)}
                 if v_side is not None:
@@ -1150,6 +1218,138 @@ class _Tables:
         oh[ent_ab[c_i, s_i], c_i, s_i] = 1.0
         self.oh_ent = f32(oh.reshape(self.E + 1, 2 * C))
         self.ent_ab = index(np.where(ent_ab >= 0, ent_ab, self.E))
+
+
+class _SdfTables:
+    """Device tensors of the SDF probe rows (one entry per pair direction q,
+    in row order): the probes (Q, P, 3), each side's static size, and per
+    evaluation family its q indices and data; the inverse permutation from
+    the families' concatenation back to q order."""
+
+    def __init__(self, cs: ContactSolver, i0, dev):
+        sh = cs.scene.shapes
+        job = cs.job
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        def index(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.long, device=dev)
+
+        self.probes = f32(cs.sdf_probes)
+        self.base_a = f32(np.maximum(sh.size[job.shape_a[i0]].astype(np.float32), 1e-6))
+        self.base_b = f32(np.maximum(sh.size[job.shape_b[i0]].astype(np.float32), 1e-6))
+        # families: (q indices, None) for the voxel rows, (q indices, fn) per
+        # closed form
+        self.families, qcat = [], []
+        if len(cs.sdf_voxel_q):
+            qv, gid = cs.sdf_voxel_q, cs.sdf_voxel_grid
+            self.families.append((index(qv), None))
+            qcat.append(qv)
+            R = cs.sdf_data.shape[1]
+            self.data = f32(cs.sdf_data).reshape(-1)  # flat, one gather a query
+            self.res = R
+            self.origin = f32(cs.sdf_origin[gid])  # (Qv, 3)
+            self.spacing = f32(cs.sdf_spacing[gid])
+            self.grid_base = index(gid.astype(np.int64) * R ** 3)  # (Qv,)
+            # flat offsets of a cell's 8 corners, (dx, dy, dz) = bits 2, 1, 0
+            self.corner = index([dx * R * R + dy * R + dz
+                                 for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)])
+        for fn, qs in cs.sdf_analytic_groups:
+            self.families.append((index(qs), fn))
+            qcat.append(qs)
+        qcat = np.concatenate(qcat)
+        self.inv = None if np.array_equal(qcat, np.arange(len(i0))) else index(np.argsort(qcat))
+
+
+def _sdf_narrowphase(t: _SdfTables, pa, qa, pb, qb, size_a, size_b):
+    """Probe-vs-SDF contacts of the pair directions' first rows (N, Q, .):
+    (point, normal, depth) of rows (N, Q * _SDF_MANIFOLD), q-major.
+
+    All P probes of side a are pushed through side b's signed-distance
+    field, scaled by both sides' runtime size over their static size (the
+    field's distance by the mean of side b's, a uniform-scale
+    approximation). Each family of fields is evaluated on its own q-slice:
+    voxel grids by `_sdf_trilinear`, closed forms and their autograd
+    gradient. Manifold selection is strided-grouped: slot m takes the
+    deepest probe among {g*M + m : g} (argmin, first index on ties)."""
+    M = _SDF_MANIFOLD
+    sig_a = size_a / t.base_a  # (N, Q, 3) runtime scale
+    sig_b = size_b / t.base_b
+    w = pa[:, :, None] + quat_rotate(qa[:, :, None], t.probes[None] * sig_a[:, :, None])
+    rel = quat_rotate(quat_conjugate(qb[:, :, None]), w - pb[:, :, None]) / sig_b[:, :, None].clamp_min(1e-6)
+    phis, normals = [], []
+    for qs, fn in t.families:
+        rel_q = rel[:, qs]
+        if fn is None:
+            phi_q, n_q = _sdf_trilinear(t, rel_q)
+        else:
+            # the closed form's gradient, on a leaf of its own: a caller's
+            # no_grad does not reach it, and no graph leaves the narrowphase
+            r = rel_q.detach().requires_grad_(True)
+            with torch.enable_grad():
+                phi_q = fn(r)
+                g = torch.autograd.grad(phi_q.sum(), r)[0]
+            phi_q = phi_q.detach()
+            n_q = g / torch.linalg.vector_norm(g, dim=-1, keepdim=True).clamp_min(1e-9)
+        phis.append(phi_q)
+        normals.append(n_q)
+    phi, n_loc = torch.cat(phis, 1), torch.cat(normals, 1)
+    if t.inv is not None:
+        phi, n_loc = phi[:, t.inv], n_loc[:, t.inv]
+    phi = phi * sig_b.mean(-1)[..., None]  # uniform-scale approximation
+    n_w = quat_rotate(qb[:, :, None], n_loc)
+    N, Q, P = phi.shape
+    G = P // M
+    ti = torch.argmin(phi.reshape(N, Q, G, M), 2)  # deepest per stride (N, Q, M)
+    j = ti[:, :, None]  # (N, Q, 1, M): probe ti * M + m of each slot m
+    depth = -torch.gather(phi.reshape(N, Q, G, M), 2, j)
+    j3 = j[..., None].expand(N, Q, 1, M, 3)
+    pts = torch.gather(w.reshape(N, Q, G, M, 3), 2, j3)
+    nrm = torch.gather(n_w.reshape(N, Q, G, M, 3), 2, j3)
+    return pts.reshape(N, Q * M, 3), nrm.reshape(N, Q * M, 3), depth.reshape(N, Q * M)
+
+
+def _sdf_trilinear(t: _SdfTables, x):
+    """Trilinear SDF lookup with the exact gradient of the interpolant.
+
+    x (N, Qv, P, 3) query points of the voxel rows in their SDF mesh's
+    AABB-centered frame. Returns (phi (N, Qv, P), n (N, Qv, P, 3)). Queries
+    outside the grid clamp to the border and add the clamped Euclidean
+    excess, so far probes stay positive (no contact). The eight corners of
+    a query's cell are one gather from the flat stacked grid."""
+    org = t.origin[None, :, None]  # (1, Qv, 1, 3)
+    spc = t.spacing[None, :, None]
+    g = (x - org) / spc
+    R = t.res
+    gc = torch.minimum(torch.maximum(g, g.new_full((), 0.0)), g.new_full((), R - 1.001))
+    excess = torch.linalg.vector_norm((g - gc) * spc, dim=-1)
+    i0 = torch.floor(gc)
+    f = gc - i0
+    i0 = i0.long()
+    flat = (t.grid_base[None, :, None] + (i0[..., 0] * R + i0[..., 1]) * R + i0[..., 2])
+    c = t.data[flat[..., None] + t.corner]  # (N, Qv, P, 8)
+    c000, c001, c010, c011, c100, c101, c110, c111 = c.unbind(-1)
+    fx, fy, fz = f.unbind(-1)
+    c00 = c000 * (1 - fx) + c100 * fx
+    c10 = c010 * (1 - fx) + c110 * fx
+    c01 = c001 * (1 - fx) + c101 * fx
+    c11 = c011 * (1 - fx) + c111 * fx
+    c0 = c00 * (1 - fy) + c10 * fy
+    c1 = c01 * (1 - fy) + c11 * fy
+    phi = c0 * (1 - fz) + c1 * fz + excess
+    dpdx = ((c100 - c000) * (1 - fy) + (c110 - c010) * fy) * (1 - fz) + (
+        (c101 - c001) * (1 - fy) + (c111 - c011) * fy
+    ) * fz
+    dpdy = ((c010 - c000) * (1 - fx) + (c110 - c100) * fx) * (1 - fz) + (
+        (c011 - c001) * (1 - fx) + (c111 - c101) * fx
+    ) * fz
+    dpdz = ((c001 - c000) * (1 - fx) + (c101 - c100) * fx) * (1 - fy) + (
+        (c011 - c010) * (1 - fx) + (c111 - c110) * fx
+    ) * fy
+    grad = torch.stack([dpdx, dpdy, dpdz], -1) / spc
+    n = grad / torch.linalg.vector_norm(grad, dim=-1, keepdim=True).clamp_min(1e-9)
+    return phi, n
 
 
 def _pair_allowed(scene, si, sj):

@@ -9,7 +9,6 @@ specs.
 import dataclasses
 import os
 import tempfile
-import types
 
 import numpy as np
 import pytest
@@ -160,35 +159,39 @@ def test_balls_scene_routes_to_the_sphere_world():
     assert c.num_contacts == 0 and c.enabled
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
+    from test_isaacgym_tpu_torch.assets import sdf
     from test_isaacgym_tpu_torch.assets.types import FemSpec
     from test_isaacgym_tpu_torch.core.sim import Simulator
-    from test_isaacgym_tpu_torch.physics.step import Stepper
 
-    # what is a later slice: a URDF mesh that asks for SDF collision (the
-    # hull and heightfield contact this test refused before are ported, and
-    # step in tests/test_torch_hull.py and tests/test_torch_terrain.py)
+    # SDF contact is ported (the name is the test's from before; the hull
+    # and heightfield contact it refused earlier step in
+    # tests/test_torch_hull.py and tests/test_torch_terrain.py): a URDF
+    # mesh that asks for SDF collision loads with a grid and probes
     prim, config, scene = _mods(PORT)
     from test_isaacgym_tpu_torch.assets import load_urdf
 
     tmp = tempfile.mkdtemp()
+    monkeypatch.setattr(sdf, "_CACHE_DIR", os.path.join(tmp, "sdf_cache"))
     with open(os.path.join(tmp, "part.obj"), "w") as f:
         f.write("v 0 0 0\nv 1 0 0\nv 0 1 0\nv 0 0 1\nf 1 2 3\nf 1 2 4\nf 1 3 4\nf 2 3 4\n")
     with open(os.path.join(tmp, "part.urdf"), "w") as f:
         f.write('<robot name="p"><link name="a"><collision><geometry><mesh filename="part.obj"/>'
                 '</geometry><sdf resolution="64"/></collision></link></robot>')
-    with pytest.raises(NotImplementedError, match="item 10"):
-        load_urdf(tmp, "part.urdf")
-    # and a mesh pair where one side carries an SDF (K_PT_SDF rows)
+    g = load_urdf(tmp, "part.urdf").links[0].geoms[0]
+    assert g.sdf.data.shape == (sdf.SDF_RES,) * 3 and g.sdf_samples.shape == (256, 3)
+    # and a mesh pair where one side carries an SDF (K_PT_SDF rows) steps
     verts = np.array([[x, y, z] for x in (-0.1, 0.1) for y in (-0.1, 0.1) for z in (-0.1, 0.1)])
     faces = np.zeros((0, 3), np.int32)
+    field = sdf.sdf_from_fn(lambda p: np.abs(p).max(-1) - 0.1, verts.min(0), verts.max(0))
     b = scene.SceneBuilder(config.SimParams())
     b.create_env((-1, -1, 0), (1, 1, 1), 1)
     b.create_actor(0, prim.create_mesh_asset("probe", verts, faces), pos=(0, 0, 0.5))
-    b.create_actor(0, prim.create_mesh_asset("field", verts, faces,
-                                             sdf=types.SimpleNamespace(analytic=None)))
-    with pytest.raises(NotImplementedError, match="K_PT_SDF"):
-        Stepper(b.finalize("cpu")[0], "cpu")
+    b.create_actor(0, prim.create_mesh_asset("field", verts, faces, sdf=field))
+    sim = Simulator(*b.finalize("cpu"), device="cpu")
+    assert 17 in sim.stepper.contact.job.kind
+    sim.rollout(5)
+    assert torch.isfinite(sim.state.root_pos).all()
     # the neighbor-list solve is ported (the name is the test's from before):
     # the mixed world steps, its boxes and spheres falling onto the ground
     sim = Simulator(*_mixed_builder(PORT).finalize("cpu"), device="cpu")

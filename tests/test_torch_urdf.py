@@ -2,9 +2,11 @@
 
 The mesh-free Panda stand-in loads to the same AssetSpec numbers in both
 packages (links, inertials, joints, limits, dof properties), with and without
-collapse_fixed; primitive geometry parses alike; and what the port does not
-read yet (<sdf> collision, on a box or a mesh, and <fem> links) raises
-NotImplementedError. <mesh> geometry is held by tests/test_torch_mesh.py.
+collapse_fixed; primitive geometry parses alike; <sdf> collision on a mesh
+gives the JAX package's grid (bitwise), probes and resolution, and on a box
+is ignored by both; and what the port does not read yet (<fem> links)
+raises NotImplementedError. <mesh> geometry is held by
+tests/test_torch_mesh.py.
 """
 import numpy as np
 import pytest
@@ -75,11 +77,8 @@ def test_primitive_geometry_and_default_inertia_like_jax(tmp_path):
 
 
 @pytest.mark.parametrize("element,what", [
-    ('<collision><geometry><mesh filename="part.obj"/></geometry><sdf resolution="256"/>'
-     '</collision>', "<sdf>"),
     ('<visual><geometry><box size="1 1 1"/></geometry></visual>'
      '<fem><tetmesh filename="part.tet"/></fem>', "<fem>"),
-    ('<collision><geometry><box size="1 1 1"/></geometry><sdf resolution="64"/></collision>', "<sdf>"),
     ('<fem><tetmesh filename="part.tet"/></fem>', "<fem>"),
 ])
 def test_unported_elements_raise(tmp_path, element, what):
@@ -88,3 +87,58 @@ def test_unported_elements_raise(tmp_path, element, what):
     )
     with pytest.raises(NotImplementedError, match=what):
         load_urdf(str(tmp_path), "x.urdf")
+
+
+_WEDGE_OBJ = """v -0.03 -0.02 -0.01
+v 0.03 -0.02 -0.01
+v -0.03 0.02 -0.01
+v 0.03 0.02 -0.01
+v -0.03 -0.02 0.03
+v 0.03 -0.02 0.01
+v -0.03 0.02 0.03
+v 0.03 0.02 0.01
+f 1 3 4
+f 1 4 2
+f 5 6 8
+f 5 8 7
+f 1 2 6
+f 1 6 5
+f 3 7 8
+f 3 8 4
+f 1 5 7
+f 1 7 3
+f 2 4 8
+f 2 8 6
+"""
+
+
+@pytest.mark.parametrize("element", [
+    '<collision><origin xyz="0 0 0.05"/><geometry><mesh filename="part.obj"/></geometry>'
+    '<sdf resolution="256"/></collision>',
+    '<collision><geometry><box size="1 1 1"/></geometry><sdf resolution="64"/></collision>',
+], ids=["mesh", "box"])
+def test_sdf_collision_like_jax(tmp_path, monkeypatch, element):
+    """<sdf> in a collision element: on a mesh, a grid of the full mesh
+    (quantized to SDF_RES, bitwise the JAX package's) and 256 surface
+    probes taken before hulling; on a primitive, ignored by both."""
+    import test_isaacgym_tpu.assets.sdf as jsdf
+    import test_isaacgym_tpu_torch.assets.sdf as tsdf
+
+    monkeypatch.setattr(jsdf, "_CACHE_DIR", str(tmp_path / "jax_cache"))
+    monkeypatch.setattr(tsdf, "_CACHE_DIR", str(tmp_path / "torch_cache"))
+    (tmp_path / "part.obj").write_text(_WEDGE_OBJ)
+    (tmp_path / "x.urdf").write_text(f'<robot name="x"><link name="a">{element}</link></robot>')
+    got = load_urdf(str(tmp_path), "x.urdf")
+    want = jax_load_urdf(str(tmp_path), "x.urdf")
+    _same_asset(got, want)
+    g, w = got.links[0].geoms[0], want.links[0].geoms[0]
+    assert g.sdf_resolution == w.sdf_resolution
+    if g.kind != "mesh":
+        assert g.sdf is None and w.sdf is None and g.sdf_samples is None
+        return
+    assert g.sdf_resolution == 256 and g.sdf.data.shape == (tsdf.SDF_RES,) * 3
+    for f in ("data", "origin", "spacing"):
+        np.testing.assert_array_equal(getattr(g.sdf, f), getattr(w.sdf, f), f)
+    np.testing.assert_array_equal(g.sdf_samples, w.sdf_samples)
+    assert g.sdf_samples.shape == (256, 3) and g.sdf.analytic is None
+    np.testing.assert_array_equal(g.center(), w.center())

@@ -12,6 +12,8 @@ takes the kernel module (box_phase, pile_phase hull, ...):
     hull_pile      pile_phase without terrain (4096 envs)
     terrain        pile_phase over the AnymalTerrain map (4096 envs)
     balls_terrain  balls_terrain_phase: the 1080 balls over a bowl
+    nut_bolt       nut_bolt_phase: 1024 nuts spun down the bolt
+    franka_nut_bolt  franka_nut_bolt_phase: the 512-env screw FSM
 
 The kernels are built from ROOT's sources first. Each phase prints what it
 prints in chip_smoke.py (ms/step, rates, busy share, ops a step, its
@@ -55,6 +57,10 @@ def main(root, phases):
             cs.pile_phase(_kernels, "terrain4096", pile.anymal_terrain())
         elif name == "balls_terrain":
             cs.balls_terrain_phase(_kernels, sw)
+        elif name == "nut_bolt":
+            cs.nut_bolt_phase(_kernels)
+        elif name == "franka_nut_bolt":
+            cs.franka_nut_bolt_phase(_kernels)
         else:
             raise SystemExit(f"unknown phase {name!r}")
         cs.log(f"phase {name}: {time.perf_counter() - t:.1f} s")
