@@ -47,7 +47,15 @@ example's 512 envs of the arm-driven screw FSM from the nut threaded on the
 bolt (envs/franka_nut_bolt.py: both SDF families, the trilinear lookup of
 the nut's voxel grid at full width; its FSM shares and mean nut descent
 held to the JAX env's at 512 envs, both starts at 2 envs to
-franka_nut_bolt_standin.npz). It prints:
+franka_nut_bolt_standin.npz); last the soft-body path, with its counts read
+around its run (the sphere-world count must stay 0): the reference's
+examples/soft_body.py at 1024 envs for 120 steps (envs/soft_body.py, the
+code-built tet icosphere stand-in on the XPBD solve, a press plate held
+over it), every env's lowest vertex and volume ratio against the example's
+and tests/test_soft.py's bounds and their spread against the JAX package's
+1024 envs, two 10-step runs bitwise equal, a TIG_DEBUG step, and 4 envs
+and the pedestal scene (sphere, capsule and hull colliders) against
+soft_body_standin.npz and soft_pedestals_standin.npz. It prints:
   * the card's name and power limit (nvidia-smi);
   * per-phase numbers (build seconds, kernel and plain times, each launch's
     share of a solve and one sweep's cost, ball-steps/s, Franka env-steps/s
@@ -170,6 +178,29 @@ BALLS_TERRAIN_STEPS, BALL_SINK = 240, 0.05
 # FNB_DESCENT_RTOL of its (both stored in franka_nut_bolt_standin.npz)
 NUT_ENVS, NUT_STEPS, NUT_RTOL, NUT_SPREAD = 1024, 240, 0.20, 5e-4
 FNB_ENVS, FNB_STEPS, FNB_SHARE_SLACK, FNB_DESCENT_RTOL = 512, 150, 0.02, 0.20
+# the soft-body path: examples/soft_body.py's scene (envs/soft_body.py, the
+# code-built icosphere stand-in) at SOFT_ENVS envs, SOFT_STEPS steps (2 s:
+# the drop, the impact and the settle). Every env's lowest vertex in
+# SOFT_LOWEST (the example's bound), and its volume ratio in SOFT_VOLUME
+# (tests/test_soft.py's bound, written for Young's 1e5) where its Young's
+# modulus is at least SOFT_BOUND_YOUNGS: the example draws it down to 2e4,
+# where a 1 m ball of density 1000 squashes past 0.75 or its tets collapse
+# in both packages (the JAX package's 1024 envs: 3 envs under 0.75, all
+# below 3.4e4). Over those envs the min, mean and max of the volume ratio
+# and the min and mean of the lowest vertex (its max is whichever ball is
+# mid-bounce at the last step) within SOFT_SLACK_FACTOR times the JAX
+# package's own jitted-vs-op-by-op difference after SOFT_STEPS steps (4
+# envs; both stored in soft_body_standin.npz with the JAX package's
+# 1024-env numbers, which are jitted): its jitted and op-by-op runs part
+# after 4 steps, so the card is held to the distributions, as
+# franka_cube's shares are, an order of magnitude wide: the card follows
+# the op-by-op arithmetic, and over 1024 envs its mean volume ratio sits
+# ~2.6e-3 under the jitted run's
+SOFT_ENVS, SOFT_STEPS, SOFT_REPEAT_STEPS = 1024, 120, 10
+# a soft step is ~26,000 launches, and the profiler's cost grows with them;
+# every step launches the same kernels, so 3 steps give a step's breakdown
+SOFT_PROFILE_STEPS = 3
+SOFT_LOWEST, SOFT_VOLUME, SOFT_BOUND_YOUNGS, SOFT_SLACK_FACTOR = (-0.05, 0.35), (0.75, 1.1), 5e4, 10.0
 # the device of every phase's envs ("cpu" only in a rehearsal of the phases on the CPU)
 DEV = "cuda"
 # sphere-world launches of each main path's timed run, by path
@@ -1216,6 +1247,139 @@ def franka_nut_bolt_phase(kernels) -> None:
             raise RuntimeError(f"{name} {start} departs from its golden")
 
 
+def soft_layers(sim, state) -> None:
+    """Ops and host ms (time_layers) of a substep's soft part (its XPBD
+    iterations, friction and damping), of one XPBD iteration and of the
+    collider projection inside it; and the soft part's device ms a step."""
+    stp, params = sim.stepper, sim.params
+    sf = stp.soft
+    args = (state.soft_pos, state.soft_vel, state.body_pos, state.body_quat, params, stp.h,
+            params.gravity)
+    p, consts, lam_d, lam_h = sf.prepare(*args)
+    time_layers({
+        f"soft substep ({sf.iters} XPBD iterations, friction, damping)": lambda: sf.substep(*args),
+        "one XPBD iteration (both tet constraints, the gather, the projection)":
+            lambda: sf.iterate(p, lam_d, lam_h, consts),
+        f"collider projection (ground and {len(sf.colliders)} colliders)":
+            lambda: sf.collide(p, consts.colliders),
+    })
+    ms = device_ms(lambda: [sf.substep(*args) for _ in range(stp.substeps)], reps=2)
+    log(f"  soft part's device time a step ({stp.substeps} substeps): "
+        + (f"{ms:.3f} ms" if ms else "not measured"))
+
+
+def soft_ends(sim, state):
+    """(each env's lowest vertex height, each env's volume over the rest
+    volume), numpy (N,), of the soft_body scene (Y-up)."""
+    w = sim.scene.soft
+    x = state.soft_pos[:, sim.stepper.soft.tets]
+    d0, d1, d2 = (x[:, :, k] - x[:, :, 0] for k in (1, 2, 3))
+    vol = (torch.linalg.cross(d0, d1, dim=-1) * d2).sum(-1).abs().sum(-1) / 6.0
+    low = state.soft_pos[..., 1].amin(-1)
+    return low.cpu().numpy(), (vol / float(w.rest_vol.sum())).cpu().numpy()
+
+
+def soft_body_phase(kernels) -> None:
+    """examples/soft_body.py at SOFT_ENVS envs: a step with host syncs made
+    errors, SOFT_STEPS timed steps with the kernels' counts read around
+    them (the sphere-world count must stay 0), every env's lowest vertex and
+    volume ratio against their bounds and the JAX package's 1024 envs,
+    tet_stress and tri_normals, two SOFT_REPEAT_STEPS runs bitwise equal, a
+    profile, the soft layers' ops and host ms, a TIG_DEBUG step at 4 envs,
+    and soft_body_standin.npz and soft_pedestals_standin.npz."""
+    from test_isaacgym_tpu_torch.envs.soft_body import pedestals_sim, soft_body_sim
+    from test_isaacgym_tpu_torch.utils import debug
+
+    name = f"soft_body{SOFT_ENVS}"
+    t = time.perf_counter()
+    sim = soft_body_sim(SOFT_ENVS, device=DEV)
+    stp, w = sim.stepper, sim.scene.soft
+    log(f"{name}: {SOFT_ENVS} envs built in {time.perf_counter() - t:.2f} s, {w.num_verts} "
+        f"vertices and {w.num_tets} tets an env, {len(w.col_kind)} collider(s) of kinds "
+        f"{w.col_kind.tolist()} beside the ground, {stp.soft.iters} XPBD iterations a substep, "
+        f"{stp.substeps} substeps a step")
+    s0 = sim.state
+    run = lambda st, n: stp.rollout(st, sim.actions, sim.params, n)  # noqa: E731
+    run(s0, 1)  # warm
+    log(f"{name}: {count_ops(lambda: run(s0, 1))} non-view PyTorch ops a step")
+    assert_sync_free(lambda: run(s0, 1), name)
+    s, step_ms, launches = timed(lambda: run(s0, SOFT_STEPS), kernels, name, SOFT_STEPS,
+                                 SOFT_ENVS, "env")
+    if launches.get("sphere_world", 0):
+        raise RuntimeError(f"{name} launched the sphere-world kernel: {launches}")
+    assert_finite(s, name)
+
+    golden = np.load(port_data("soft_body_standin.npz"))
+    if int(golden["big_envs"]) != SOFT_ENVS or int(golden["big_steps"]) != SOFT_STEPS:
+        raise RuntimeError(f"{name}: the golden's JAX numbers are of another run")
+    low, vol = soft_ends(sim, s)
+    stiff = sim.params.soft_youngs[:, 0].cpu().numpy() >= SOFT_BOUND_YOUNGS
+    out = (vol <= SOFT_VOLUME[0]) | (vol >= SOFT_VOLUME[1])
+    jax_out = (golden["jax_volume"] <= SOFT_VOLUME[0]) | (golden["jax_volume"] >= SOFT_VOLUME[1])
+    log(f"{name} after {SOFT_STEPS} steps: lowest vertex {low.min():.6f} to {low.max():.6f} m "
+        f"(bound {SOFT_LOWEST}); volume ratio out of {SOFT_VOLUME} in {int(out[stiff].sum())} of "
+        f"{int(stiff.sum())} envs of Young's >= {SOFT_BOUND_YOUNGS:g} and {int(out[~stiff].sum())} of "
+        f"the {int((~stiff).sum())} softer (JAX package: {int(jax_out[stiff].sum())} and "
+        f"{int(jax_out[~stiff].sum())})")
+    if not ((low > SOFT_LOWEST[0]) & (low < SOFT_LOWEST[1])).all() or out[stiff].any():
+        raise RuntimeError(f"{name}: an env left the lowest-vertex bounds {SOFT_LOWEST} or the "
+                           f"volume bounds {SOFT_VOLUME}")
+    for what, got, want, agree, fns in (
+            ("lowest vertex", low, golden["jax_lowest"],
+             np.abs(golden["agree_lowest_jit"] - golden["agree_lowest_opbyop"]).max(),
+             (np.min, np.mean)),
+            ("volume ratio", vol, golden["jax_volume"],
+             np.abs(golden["agree_volume_jit"] - golden["agree_volume_opbyop"]).max(),
+             (np.min, np.mean, np.max))):
+        slack = SOFT_SLACK_FACTOR * float(agree)
+        stats = np.array([f(got[stiff]) for f in fns])
+        jstats = np.array([f(want[stiff]) for f in fns])
+        log(f"{name}: {what} {'/'.join(f.__name__ for f in fns)} over the {int(stiff.sum())} "
+            f"stiffer envs {stats.round(6).tolist()} (max {got[stiff].max():.6f}); JAX "
+            f"package, the same envs on the CPU {jstats.round(6).tolist()} (max "
+            f"{want[stiff].max():.6f}); slack {slack:.3e} ({SOFT_SLACK_FACTOR:g} x its "
+            f"jitted-vs-op-by-op {agree:.3e}); largest per-env difference "
+            f"{np.abs(got - want)[stiff].max():.3e}")
+        if np.abs(stats - jstats).max() > slack:
+            raise RuntimeError(f"{name}: the {what} departs from the JAX package's")
+    sf = stp.soft
+    stress = sf.tet_stress(s.soft_pos, sim.params)
+    asym = float((stress - stress.transpose(-1, -2)).abs().max())
+    unit = float((sf.tri_normals(s.soft_pos).norm(dim=-1) - 1.0).abs().max())
+    log(f"{name}: tet_stress {tuple(stress.shape)} finite {bool(torch.isfinite(stress).all())}, "
+        f"asymmetry {asym:.3e}; tri_normals' largest | |n| - 1 | {unit:.3e}")
+    if not (torch.isfinite(stress).all() and asym < 1e-2 and unit < 1e-5):
+        raise RuntimeError(f"{name}: tet_stress or tri_normals are wrong")
+
+    a, b = run(s0, SOFT_REPEAT_STEPS), run(s0, SOFT_REPEAT_STEPS)
+    diff = max(float((x - y).abs().max()) for x, y in zip(a, b)
+               if x is not None and x.is_floating_point())
+    log(f"{name}: two {SOFT_REPEAT_STEPS}-step runs differ by {diff}")
+    if diff != 0.0:
+        raise RuntimeError(f"{name} is not bitwise repeatable")
+    profile_steps(lambda st: run(st, SOFT_PROFILE_STEPS), s, step_ms, SOFT_PROFILE_STEPS)
+    soft_layers(sim, s)
+
+    os.environ["TIG_DEBUG"] = "1"
+    try:
+        small = soft_body_sim(4, device=DEV)
+        debug.verify_step_purity(small.stepper, small.state, small.actions, small.params)
+    finally:
+        del os.environ["TIG_DEBUG"]
+    log(f"{name}: verify_step_purity under TIG_DEBUG=1 passed at 4 envs")
+
+    for path, small in (("soft_body_standin.npz", soft_body_sim(int(golden["num_envs"]), DEV)),
+                        ("soft_pedestals_standin.npz", pedestals_sim(DEV))):
+        g = np.load(port_data(path))
+        worst = golden_err({"soft_pos": g["soft_pos"]}, small.state,
+                           lambda st: {"soft_pos": st.soft_pos},
+                           lambda st: small.stepper.step(st, small.actions, small.params))
+        log(f"{name}: {path} ({small.scene.num_envs} env(s), soft_pos every step to step "
+            f"{len(g['soft_pos']) - 1}): max |err| of largest magnitude {worst:.3e}")
+        if worst > GOLDEN_TOL:
+            raise RuntimeError(f"{name} departs from {path}: {worst:.3e} > {GOLDEN_TOL}")
+
+
 def cube_phase(kernels) -> None:
     """The franka_cube pick path at CUBE_ENVS envs under OSC: a timed run
     with the hand-written kernels' counts read around it (the path has none,
@@ -1405,6 +1569,10 @@ def main() -> int:
     # screw FSM, each with its own counts ----
     nut_bolt_phase(_kernels)
     franka_nut_bolt_phase(_kernels)
+
+    # ---- 10. soft bodies: the XPBD tet solve of examples/soft_body.py,
+    # with its own counts ----
+    soft_body_phase(_kernels)
 
     log("sphere_world launches by main path: "
         + ", ".join(f"{k} {v}" for k, v in PATH_LAUNCHES.items()))

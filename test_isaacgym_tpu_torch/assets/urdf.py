@@ -14,9 +14,10 @@ Port of test_isaacgym_tpu/assets/urdf.py (host numpy, no torch). Handles:
   - `<sdf resolution="N"/>` in a mesh collision element: a voxel SDF grid of
     the full mesh (quantized to assets.sdf.SDF_RES) and 256 surface probes,
     both taken before hulling (the reference's nut-bolt URDFs)
-`<fem>` soft-body links (ROADMAP.md Queue 1, item 11) are a later slice of
-the port: a file that has them raises NotImplementedError. So is
-`use_mesh_materials` (item 12).
+  - `<fem>` soft-body links: a `<tetmesh>` `.tet` file, the material tags
+    and the origin (physics/soft.py simulates the mesh)
+`use_mesh_materials` is a later slice of the port (ROADMAP.md Queue 1,
+item 12).
 """
 from __future__ import annotations
 
@@ -192,11 +193,6 @@ def load_urdf(
     links_by_name = {}
     for el in robot.findall("link"):
         name = el.get("name")
-        if el.find("fem") is not None:
-            raise NotImplementedError(
-                f"{path}: link {name!r} has a <fem> soft body, not ported to the "
-                "torch package yet (ROADMAP.md Queue 1, item 11: soft bodies)"
-            )
         l = LinkSpec(name=name)
         inertial = el.find("inertial")
         if inertial is not None:
@@ -263,8 +259,38 @@ def load_urdf(
             for cg in l.geoms:
                 if cg.color is None:
                     cg.color = vis_col
+        fem_el = el.find("fem")
+        if fem_el is not None:
+            # FleX soft-body link (the reference's assets/urdf/icosphere.urdf):
+            # tet mesh + material defaults; simulated by physics/soft.py
+            from ..physics.soft import load_tet
+            from .types import FemSpec
+
+            def _val(tag, default):
+                e = fem_el.find(tag)
+                return float(e.get("value")) if e is not None else default
+
+            fpos, fquat = _parse_origin(fem_el.find("origin"))
+            tm = fem_el.find("tetmesh")
+            tv, tt = load_tet(_resolve_mesh_path(tm.get("filename"), urdf_dir, asset_root))
+            l.fem = FemSpec(
+                verts=tv,
+                tets=tt,
+                origin_pos=tuple(fpos),
+                origin_quat=tuple(fquat),
+                density=_val("density", 1000.0),
+                youngs=_val("youngs", 1e5),
+                poissons=_val("poissons", 0.45),
+                damping=_val("damping", 0.0),
+                attach_distance=_val("attachDistance", 0.0),
+            )
         if not l.explicit_inertial:
             compute_default_inertia(l, density)
+        if l.fem is not None and l.mass == 0.0 and not l.geoms:
+            # massless rigid placeholder for the soft link: keep the joint
+            # chain SPD without affecting dynamics
+            l.mass = 1e-3
+            l.inertia = np.eye(3) * 1e-6
         links_by_name[name] = l
 
     # joints define the tree

@@ -758,16 +758,9 @@ class SceneBuilder:
         }
 
         # --- soft bodies ----------------------------------------------------
-        # the FEM world (test_isaacgym_tpu/physics/soft.py) is not ported yet
-        for p in protos:
-            for link in p.asset.links:
-                if getattr(link, "fem", None) is not None:
-                    raise NotImplementedError(
-                        f"actor {p.name!r} has a <fem> link: soft bodies are "
-                        "not ported to the torch package yet (ROADMAP.md Queue 1, "
-                        "item 11: soft bodies)"
-                    )
-        soft = None
+        from ..physics.soft import build_soft_world
+
+        soft = build_soft_world(protos, actors, shapes, self.env_origins[0], hulls)
 
         scene = Scene(
             sim_params=self.sim_params,
@@ -806,60 +799,64 @@ class SceneBuilder:
             for slot, p in enumerate(self.envs[e]):
                 root_pos[e, slot] = self.env_origins[e] + p.pos
                 root_quat[e, slot] = p.quat
-        state = from_numpy(
-            dict(
-                root_pos=root_pos,
-                root_quat=root_quat,
-                root_linvel=np.zeros((n_envs, A, 3), f32),
-                root_angvel=np.zeros((n_envs, A, 3), f32),
-                dof_pos=np.zeros((n_envs, D), f32),
-                dof_vel=np.zeros((n_envs, D), f32),
-                body_pos=np.zeros((n_envs, B, 3), f32),
-                body_quat=np.tile(np.array([0, 0, 0, 1], f32), (n_envs, B, 1)),
-                body_linvel=np.zeros((n_envs, B, 3), f32),
-                body_angvel=np.zeros((n_envs, B, 3), f32),
-                contact_force=np.zeros((n_envs, B, 3), f32),
-                time=np.zeros((), f32),
-                steps=np.zeros((), np.int32),
-            ),
-            SimState,
-            device,
+        fields = dict(
+            root_pos=root_pos,
+            root_quat=root_quat,
+            root_linvel=np.zeros((n_envs, A, 3), f32),
+            root_angvel=np.zeros((n_envs, A, 3), f32),
+            dof_pos=np.zeros((n_envs, D), f32),
+            dof_vel=np.zeros((n_envs, D), f32),
+            body_pos=np.zeros((n_envs, B, 3), f32),
+            body_quat=np.tile(np.array([0, 0, 0, 1], f32), (n_envs, B, 1)),
+            body_linvel=np.zeros((n_envs, B, 3), f32),
+            body_angvel=np.zeros((n_envs, B, 3), f32),
+            contact_force=np.zeros((n_envs, B, 3), f32),
+            time=np.zeros((), f32),
+            steps=np.zeros((), np.int32),
         )
+        if soft is not None:
+            sp0 = soft.verts0[None] + np.asarray(self.env_origins, f32)[:, None]
+            fields.update(soft_pos=sp0.astype(f32),
+                          soft_vel=np.zeros((n_envs, soft.num_verts, 3), f32))
+        state = from_numpy(fields, SimState, device)
 
         p = init_dof_props
         tile = lambda x: np.tile(np.asarray(x, f32), (n_envs,) + (1,) * np.ndim(x))
-        params = from_numpy(
-            dict(
-                dof_stiffness=tile(p["stiffness"]),
-                dof_damping=tile(p["damping"]),
-                dof_armature=tile(p["armature"]),
-                dof_friction=tile(p["friction"]),
-                dof_lower=tile(p["lower"]),
-                dof_upper=tile(p["upper"]),
-                dof_has_limits=(
-                    np.tile(p["hasLimits"], (n_envs, 1)) if D else np.zeros((n_envs, 0), bool)
-                ),
-                dof_max_effort=tile(p["effort"]),
-                dof_max_velocity=tile(p["velocity"]),
-                dof_drive_mode=(
-                    np.tile(p["driveMode"].astype(np.int32), (n_envs, 1))
-                    if D
-                    else np.zeros((n_envs, 0), np.int32)
-                ),
-                body_mass=tile(body_mass),
-                body_com=tile(body_com),
-                body_inertia=tile(body_inertia),
-                body_disable_gravity=np.tile(body_dis_grav, (n_envs, 1)),
-                shape_friction=tile(shapes.friction) if shapes.count else np.zeros((n_envs, 0), f32),
-                shape_restitution=tile(shapes.restitution) if shapes.count else np.zeros((n_envs, 0), f32),
-                shape_size=tile(shapes.size) if shapes.count else np.zeros((n_envs, 0, 3), f32),
-                shape_pos=tile(shapes.pos) if shapes.count else np.zeros((n_envs, 0, 3), f32),
-                attractor_stiffness=attr_init["stiffness"],
-                attractor_damping=attr_init["damping"],
-                attractor_force_limit=attr_init["force_limit"],
-                gravity=np.asarray(_vec3t(self.sim_params.gravity), f32),
+        fields = dict(
+            dof_stiffness=tile(p["stiffness"]),
+            dof_damping=tile(p["damping"]),
+            dof_armature=tile(p["armature"]),
+            dof_friction=tile(p["friction"]),
+            dof_lower=tile(p["lower"]),
+            dof_upper=tile(p["upper"]),
+            dof_has_limits=(
+                np.tile(p["hasLimits"], (n_envs, 1)) if D else np.zeros((n_envs, 0), bool)
             ),
-            PhysParams,
-            device,
+            dof_max_effort=tile(p["effort"]),
+            dof_max_velocity=tile(p["velocity"]),
+            dof_drive_mode=(
+                np.tile(p["driveMode"].astype(np.int32), (n_envs, 1))
+                if D
+                else np.zeros((n_envs, 0), np.int32)
+            ),
+            body_mass=tile(body_mass),
+            body_com=tile(body_com),
+            body_inertia=tile(body_inertia),
+            body_disable_gravity=np.tile(body_dis_grav, (n_envs, 1)),
+            shape_friction=tile(shapes.friction) if shapes.count else np.zeros((n_envs, 0), f32),
+            shape_restitution=tile(shapes.restitution) if shapes.count else np.zeros((n_envs, 0), f32),
+            shape_size=tile(shapes.size) if shapes.count else np.zeros((n_envs, 0, 3), f32),
+            shape_pos=tile(shapes.pos) if shapes.count else np.zeros((n_envs, 0, 3), f32),
+            attractor_stiffness=attr_init["stiffness"],
+            attractor_damping=attr_init["damping"],
+            attractor_force_limit=attr_init["force_limit"],
+            gravity=np.asarray(_vec3t(self.sim_params.gravity), f32),
         )
+        if soft is not None:
+            fields.update(
+                soft_youngs=tile(np.array([i.youngs for i in soft.instances])),
+                soft_poissons=tile(np.array([i.poissons for i in soft.instances])),
+                soft_damping=tile(np.array([i.damping for i in soft.instances])),
+            )
+        params = from_numpy(fields, PhysParams, device)
         return scene, state, params

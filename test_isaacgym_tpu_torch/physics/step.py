@@ -7,10 +7,8 @@ external link forces, forward dynamics, joint friction), phase B (free-body
 velocities before contact), phase C (the contact solve), phase D (limits and
 position integration) and the body-state refresh. Attractors on
 fixed-base articulations add their implicit spring-damper impulses in
-phase A.
-
-Not ported yet, and raising NotImplementedError at construction: soft
-bodies, and the contact kind physics/contacts.py names (SDF probes).
+phase A. A scene with `<fem>` links runs the XPBD soft solve
+(physics/soft.py) after each rigid substep.
 
 With TIG_DEBUG=1 (utils/debug.py) every substep's state is checked for
 non-finite values, a host sync per substep that happens only then.
@@ -44,6 +42,7 @@ from ..utils.linalg import spd_inv, spd_solve
 from . import contacts as contacts_mod
 from . import dynamics
 from .kinematics import ArtTopo, body_jacobian, fk, jacobian as link_jacobian, topo_from_group
+from .soft import SoftStepper
 
 DOF_MODE_NONE, DOF_MODE_POS, DOF_MODE_VEL, DOF_MODE_EFFORT = 0, 1, 2, 3
 
@@ -78,11 +77,6 @@ class _Attractor(NamedTuple):
 
 class Stepper:
     def __init__(self, scene: Scene, device="cuda"):
-        if scene.soft is not None:
-            raise NotImplementedError(
-                "soft bodies are not ported to the torch package yet "
-                "(ROADMAP.md Queue 1, item 11)"
-            )
         self.scene = scene
         self.device = torch.device(device)
         dev = self.device
@@ -149,6 +143,7 @@ class Stepper:
                 )
         self._eye6 = torch.eye(6, dtype=torch.float32, device=dev)
         self.contact = contacts_mod.ContactSolver(scene, device=dev)
+        self.soft = None if scene.soft is None else SoftStepper(scene.soft, scene, dev)
         # groups whose links have contact rows: their Jacobians and inverse
         # implicit operators feed the solve
         self._group_has_rows = [len(ia) + len(ib) > 0 for ia, ib in self.contact.link_lists]
@@ -192,6 +187,16 @@ class Stepper:
             )
             if self.debug:
                 _debug.check_finite(state, f"substep {sub_i}")
+            if self.soft is not None:
+                # one-way coupled FEM solve (physics/soft.py): soft verts see
+                # the body cache, which refreshes at step end, so the press
+                # lags the rigid substeps (as in the JAX package; invisible
+                # at 1/60)
+                sp, sv = self.soft.substep(
+                    state.soft_pos, state.soft_vel, state.body_pos, state.body_quat,
+                    params, self.h, params.gravity,
+                )
+                state = state._replace(soft_pos=sp, soft_vel=sv)
             first = False
         state = self.refresh_body_state(state, params)
         if warm is not None and state.warm_n is not None:

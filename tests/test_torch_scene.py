@@ -198,14 +198,29 @@ def test_unported_paths_raise(monkeypatch):
     sim.rollout(40)
     z = sim.state.root_pos[0, :, 2]
     assert torch.isfinite(sim.state.root_pos).all() and 0.0 < float(z.min()) < 0.1
-    # soft bodies
-    ball = prim.create_sphere(0.1)
-    ball.links[0].fem = FemSpec(verts=np.zeros((4, 3)), tets=np.zeros((1, 4), np.int32))
-    b = scene.SceneBuilder(config.SimParams())
-    b.create_env((-1, -1, 0), (1, 1, 1), 1)
-    b.create_actor(0, ball)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        b.finalize("cpu")
+    # soft bodies are ported too: a <fem> link finalizes to the JAX
+    # package's soft world and steps (tests/test_torch_soft.py holds the
+    # solve)
+    from test_isaacgym_tpu.assets.types import FemSpec as JaxFemSpec
+
+    verts = np.array([[0, 0, 0], [0.2, 0, 0], [0, 0.2, 0], [0, 0, 0.2]], np.float32)
+    built = []
+    for pkg, spec in ((JAX_PKG, JaxFemSpec), (PORT, FemSpec)):
+        prim_p, config_p, scene_p = _mods(pkg)
+        ball = prim_p.create_sphere(0.1)
+        ball.links[0].fem = spec(verts=verts, tets=np.array([[0, 1, 2, 3]], np.int32))
+        b = scene_p.SceneBuilder(config_p.SimParams())
+        b.add_ground(config_p.PlaneParams())
+        b.create_env((-1, -1, 0), (1, 1, 1), 1)
+        b.create_actor(0, ball, pos=(0, 0, 0.5))
+        built.append(b.finalize() if pkg == JAX_PKG else b.finalize("cpu"))
+    (jscene, jstate, _), (tscene, tstate, _) = built
+    for f in ("verts0", "tets", "inv_dm", "rest_vol", "inv_mass", "col_kind"):
+        np.testing.assert_allclose(getattr(tscene.soft, f), getattr(jscene.soft, f), atol=1e-6)
+    np.testing.assert_array_equal(tstate.soft_pos.numpy(), np.asarray(jstate.soft_pos))
+    sim = Simulator(*built[1], device="cpu")
+    sim.rollout(2)
+    assert torch.isfinite(sim.state.soft_pos).all()
 
 
 def test_from_numpy_round_trips_jax_state_and_params():

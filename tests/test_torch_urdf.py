@@ -4,8 +4,8 @@ The mesh-free Panda stand-in loads to the same AssetSpec numbers in both
 packages (links, inertials, joints, limits, dof properties), with and without
 collapse_fixed; primitive geometry parses alike; <sdf> collision on a mesh
 gives the JAX package's grid (bitwise), probes and resolution, and on a box
-is ignored by both; and what the port does not read yet (<fem> links)
-raises NotImplementedError. <mesh> geometry is held by
+is ignored by both; and <fem> soft-body links load the JAX package's tet
+mesh, materials and origin. <mesh> geometry is held by
 tests/test_torch_mesh.py.
 """
 import numpy as np
@@ -82,11 +82,26 @@ def test_primitive_geometry_and_default_inertia_like_jax(tmp_path):
     ('<fem><tetmesh filename="part.tet"/></fem>', "<fem>"),
 ])
 def test_unported_elements_raise(tmp_path, element, what):
+    """<fem> links are ported (the name is the test's from before, when they
+    raised): the tet mesh, the material defaults and the origin load as in
+    the JAX package, and a link with no geometry becomes the massless
+    placeholder (mass 1e-3)."""
+    (tmp_path / "part.tet").write_text(
+        "v 0 0 0\nv 1 0 0\nv 0 1 0\nv 0 0 1\nv 1 1 1\nt 0 1 2 3\nt 1 2 3 4\n")
     (tmp_path / "x.urdf").write_text(
         f'<robot name="x"><link name="a">{element}</link></robot>'
     )
-    with pytest.raises(NotImplementedError, match=what):
-        load_urdf(str(tmp_path), "x.urdf")
+    got, want = load_urdf(str(tmp_path), "x.urdf"), jax_load_urdf(str(tmp_path), "x.urdf")
+    _same_asset(got, want)
+    a, b = got.links[0].fem, want.links[0].fem
+    assert a is not None and b is not None, what
+    for f in ("verts", "tets"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
+        assert getattr(a, f).dtype == getattr(b, f).dtype
+    assert {k: v for k, v in vars(a).items() if k not in ("verts", "tets")} == {
+        k: v for k, v in vars(b).items() if k not in ("verts", "tets")}
+    if not got.links[0].visuals:
+        assert got.links[0].mass == 1e-3
 
 
 _WEDGE_OBJ = """v -0.03 -0.02 -0.01

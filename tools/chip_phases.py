@@ -14,6 +14,7 @@ takes the kernel module (box_phase, pile_phase hull, ...):
     balls_terrain  balls_terrain_phase: the 1080 balls over a bowl
     nut_bolt       nut_bolt_phase: 1024 nuts spun down the bolt
     franka_nut_bolt  franka_nut_bolt_phase: the 512-env screw FSM
+    soft_body      soft_body_phase: 1024 envs of the XPBD tet icosphere
 
 The kernels are built from ROOT's sources first. Each phase prints what it
 prints in chip_smoke.py (ms/step, rates, busy share, ops a step, its
@@ -61,6 +62,8 @@ def main(root, phases):
             cs.nut_bolt_phase(_kernels)
         elif name == "franka_nut_bolt":
             cs.franka_nut_bolt_phase(_kernels)
+        elif name == "soft_body":
+            cs.soft_body_phase(_kernels)
         else:
             raise SystemExit(f"unknown phase {name!r}")
         cs.log(f"phase {name}: {time.perf_counter() - t:.1f} s")
