@@ -55,7 +55,21 @@ over it), every env's lowest vertex and volume ratio against the example's
 and tests/test_soft.py's bounds and their spread against the JAX package's
 1024 envs, two 10-step runs bitwise equal, a TIG_DEBUG step, and 4 envs
 and the pedestal scene (sphere, capsule and hull colliders) against
-soft_body_standin.npz and soft_pedestals_standin.npz. It prints:
+soft_body_standin.npz and soft_pedestals_standin.npz; last the RL
+vec-env surface and the renderer (envs/rl_env.py, render/raster.py,
+render/camera.py), each with its counts read around its run (the
+sphere-world count must stay 0): make(task="Ant") at 4096 envs on the
+code-written Ant stand-in for 200 steps of RandomState(0) actions (a step
+with host syncs made errors; the envs still in the scene finite and in
+their joint limits; the share of envs that reset, the share thrown out of
+the scene and the others' mean torso height against the JAX package's
+4096 envs; 4 envs to ant_standin.npz's horizon; render() of env 0 against
+the JAX frame), make(task="Franka") at 4096 envs for 60 steps (8 envs to
+franka_reach_standin.npz), bench.py's render config at 1600 x 900 on one
+env of the FrankaNutBoltEnv scene (its triangle and hull passes; 160 x 90
+against render_standin.npz), and a 64 x 48 CameraSensor on each of the
+4096 Ant envs for 10 domain-randomized frames, two runs bitwise equal. It
+prints:
   * the card's name and power limit (nvidia-smi);
   * per-phase numbers (build seconds, kernel and plain times, each launch's
     share of a solve and one sweep's cost, ball-steps/s, Franka env-steps/s
@@ -201,6 +215,34 @@ SOFT_ENVS, SOFT_STEPS, SOFT_REPEAT_STEPS = 1024, 120, 10
 # every step launches the same kernels, so 3 steps give a step's breakdown
 SOFT_PROFILE_STEPS = 3
 SOFT_LOWEST, SOFT_VOLUME, SOFT_BOUND_YOUNGS, SOFT_SLACK_FACTOR = (-0.05, 0.35), (0.75, 1.1), 5e4, 10.0
+# the RL vec-envs (envs/rl_env.py): make(task="Ant") at IsaacGymEnvs' Ant
+# numEnvs, ANT_STEPS steps of actions uniform in [-1, 1] from
+# RandomState(0). Its share of envs that reset, share that left the scene
+# (thrown past LEFT_HEIGHT or not finite: the JAX env's 30 N m on the Ant's
+# light links throws ~7% of them) and the others' mean torso height after the
+# last step within ANT_SLACK_FACTOR times the JAX package's own
+# jitted-vs-op-by-op difference of the same statistic at the same width
+# (ant_standin.npz, tools/make_rl_goldens.py); the 4-env golden to its
+# horizon (28 steps: the JAX package's own jitted and op-by-op runs differ
+# by half the tolerance at step 29 and part at 33; an H100, a third
+# rounding path, parted at step 29 on the reward, by 1.081e-4, 1.6x their
+# difference there); render() of env 0 there against the JAX frame,
+# per-shape segmentation and colour within one count on all but
+# FRAME_SHARE of it.
+ANT_ENVS, ANT_STEPS, ANT_PROFILE_STEPS, ANT_SLACK_FACTOR = 4096, 200, 3, 10.0
+LEFT_HEIGHT, FRAME_SHARE = 10.0, 0.01
+# make(task="Franka"): FrankaReachVecEnv, REACH_STEPS steps; its 8-env golden
+REACH_ENVS, REACH_STEPS = 4096, 60
+# bench.py's render config (bench.py:122-176) on one env of the
+# FrankaNutBoltEnv scene (the arm's boxes, the nut stand-in's visual mesh by
+# the triangle pass and its hull), RENDER_FRAMES frames; 160 x 90 of the
+# same camera against render_standin.npz
+RENDER_SIZE, RENDER_SMALL, RENDER_FRAMES = (1600, 900), (160, 90), 8
+RENDER_EYE, RENDER_TARGET = (1.6, 0.9, 0.9), (0.0, 0.0, 0.4)
+# a 64 x 48 CameraSensor on each of the ANT_ENVS Ant envs
+# (examples/domain_randomization.py:27's camera), CAMERA_FRAMES frames each
+# after randomize_colors, randomize_light and randomize_camera_pose
+CAMERA_SIZE, CAMERA_FRAMES = (64, 48), 10
 # the device of every phase's envs ("cpu" only in a rehearsal of the phases on the CPU)
 DEV = "cuda"
 # sphere-world launches of each main path's timed run, by path
@@ -371,7 +413,7 @@ def launch_shares(solve, reps=20):
         log(f"  launch {name}: {us:.2f} us/solve, {100 * us / total:.1f}% of the solve")
 
 
-def profile_steps(run_steps, state, step_ms, steps=PROFILE_STEPS):
+def profile_steps(run_steps, state, step_ms, steps=PROFILE_STEPS, unit="step"):
     """Where a step's time goes: torch.profiler over `steps` steps of a
     path (`run_steps` runs that many). Prints device busy time per step
     (device-side events only: kernels, copies, sets), its share of the
@@ -391,17 +433,17 @@ def profile_steps(run_steps, state, step_ms, steps=PROFILE_STEPS):
         key=lambda d: -d[2],
     )
     if not dev:
-        log(f"profile {steps} steps: device time not measured (no device events)")
+        log(f"profile {steps} {unit}s: device time not measured (no device events)")
         return
     busy_us = sum(d[2] for d in dev) / steps
-    log(f"profile {steps} steps: device busy {busy_us:.1f} us/step, "
-        f"{100 * busy_us / (step_ms * 1e3):.1f}% of the {step_ms:.4f} ms step; "
-        f"{sum(d[1] for d in dev) / steps:.1f} device launches/step")
+    log(f"profile {steps} {unit}s: device busy {busy_us:.1f} us/{unit}, "
+        f"{100 * busy_us / (step_ms * 1e3):.1f}% of the {step_ms:.4f} ms {unit}; "
+        f"{sum(d[1] for d in dev) / steps:.1f} device launches/{unit}")
     for key, count, us in dev[:6]:
-        log(f"  {us / steps:8.1f} us/step {count / steps:5.1f}x/step  {key[:90]}")
+        log(f"  {us / steps:8.1f} us/{unit} {count / steps:5.1f}x/{unit}  {key[:90]}")
     sw = [d for d in dev if "sw_broadphase" in d[0] or "sw_sweeps" in d[0]]
-    log(f"  sphere_world kernels: {sum(d[2] for d in sw) / steps:.1f} us/step, "
-        f"{sum(d[1] for d in sw) / steps:.1f} launches/step")
+    log(f"  sphere_world kernels: {sum(d[2] for d in sw) / steps:.1f} us/{unit}, "
+        f"{sum(d[1] for d in sw) / steps:.1f} launches/{unit}")
 
 
 def count_ops(fn) -> int:
@@ -539,6 +581,11 @@ def assert_in_limits(state, params, what) -> None:
     lim = params.dof_has_limits
     if ((lim & (state.dof_pos < params.dof_lower)) | (lim & (state.dof_pos > params.dof_upper))).any():
         raise RuntimeError(f"{what} dof_pos left its joint limits")
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max(|want|, 1) of a tensor against a numpy array."""
+    return float(np.abs(got.cpu().numpy() - want).max()) / max(float(np.abs(want).max()), 1.0)
 
 
 def golden_err(golden, state, snap, advance) -> float:
@@ -1380,6 +1427,322 @@ def soft_body_phase(kernels) -> None:
             raise RuntimeError(f"{name} departs from {path}: {worst:.3e} > {GOLDEN_TOL}")
 
 
+def ant_stats(obs, reset):
+    """(share of envs that reset at some step, share that left the scene,
+    mean torso height of the others) of the last observation (N, 27) and
+    the per-env reset flags: an env has left when its observation is not
+    finite or its torso is over LEFT_HEIGHT (tools/make_rl_goldens.py's
+    ant_stats, on tensors)."""
+    left = ~torch.isfinite(obs).all(-1) | (obs[:, 0] > LEFT_HEIGHT)
+    return (float(reset.float().mean()), float(left.float().mean()),
+            float(obs[~left, 0].mean())), left
+
+
+def frame_check(what, rgba, seg, want_rgb, want_seg):
+    """render()'s frame against a JAX frame: per-shape segmentation equal,
+    colour within one count, all but FRAME_SHARE of the pixels."""
+    rgb = rgba[..., :3].cpu().numpy()
+    if rgb.dtype != np.uint8 or rgb.shape != want_rgb.shape or rgb.std() == 0:
+        raise RuntimeError(f"{what}: frame {rgb.shape} {rgb.dtype} std {rgb.std()}")
+    seg_bad = seg.cpu().numpy() != want_seg
+    col_bad = np.abs(rgb.astype(np.int32) - want_rgb.astype(np.int32)).max(-1) > 1
+    bad = seg_bad | col_bad
+    log(f"{what}: frame {rgb.shape} uint8 std {rgb.std():.2f}; segmentation differs on "
+        f"{seg_bad.mean():.5f}, colour by more than one count where it agrees on "
+        f"{(col_bad & ~seg_bad).mean():.5f} of the pixels (bound {FRAME_SHARE})")
+    if bad.mean() > FRAME_SHARE:
+        raise RuntimeError(f"{what}: the frame departs from the JAX package's")
+
+
+def ant_phase(kernels) -> None:
+    """make(task="Ant") at ANT_ENVS envs: a step with host syncs made errors,
+    ANT_STEPS timed steps of RandomState(0) actions already on the card with
+    the kernels' counts read around them (the sphere-world count must stay
+    0), the state of the envs still in the scene finite and in their joint
+    limits, the statistics against the JAX package's, a profile, the 4-env
+    golden and render() of env 0 against the JAX frame."""
+    from test_isaacgym_tpu_torch.envs import rl_env
+
+    name = f"ant{ANT_ENVS}"
+    t = time.perf_counter()
+    env = rl_env.make(task="Ant", num_envs=ANT_ENVS, sim_device=DEV, rl_device=DEV)
+    log(f"{name}: {ANT_ENVS} envs built in {time.perf_counter() - t:.2f} s, "
+        f"{env.sim.stepper.contact.num_contacts} contact rows an env")
+    acts = torch.as_tensor(np.random.RandomState(0).uniform(-1, 1, (ANT_STEPS, ANT_ENVS, 8))
+                           .astype(np.float32), device=DEV)
+    env.reset()
+    env.step(acts[0])  # warm
+    log(f"{name}: {count_ops(lambda: env.step(acts[0]))} non-view PyTorch ops a step")
+    assert_sync_free(lambda: env.step(acts[0]), name)
+
+    def run():
+        env.reset()
+        reset = torch.zeros(ANT_ENVS, dtype=torch.bool, device=DEV)
+        for k in range(ANT_STEPS):
+            obs, _, done, _ = env.step(acts[k])
+            reset |= done
+        return obs, reset, done
+
+    (obs, reset, done), step_ms, launches = timed(run, kernels, name, ANT_STEPS, ANT_ENVS, "env")
+    if launches.get("sphere_world", 0):
+        raise RuntimeError(f"{name} launched the sphere-world kernel: {launches}")
+    (share, left_share, height), left = ant_stats(obs, reset)
+    s = env.state
+    for key, v in s._asdict().items():
+        if (v is not None and v.is_floating_point() and v.dim() and v.shape[0] == ANT_ENVS
+                and not torch.isfinite(v[~left]).all()):
+            raise RuntimeError(f"{name} state.{key} is not finite in an env still in the scene")
+    # an env reset by the last step holds the initial state, whose DOFs are
+    # 0 (the JAX env's too), outside the ankles' ranges (30..100 degrees)
+    if not torch.equal(s.dof_pos[done], env.sim.initial_state.dof_pos[done]):
+        raise RuntimeError(f"{name}: an env reset by the last step is not at its initial state")
+    keep = ~done & ~left
+    p, q = env.sim.params, s.dof_pos[keep]
+    out = p.dof_has_limits[keep] & ((q < p.dof_lower[keep]) | (q > p.dof_upper[keep]))
+    if out.any():
+        raise RuntimeError(f"{name}: dof_pos left its joint limits in {int(out.any(-1).sum())} envs")
+    log(f"{name} after {ANT_STEPS} steps: {int(reset.sum())} envs reset at some step "
+        f"(auto-resets; {int(done.sum())} by the last one, at their initial state), "
+        f"{int(left.sum())} left the scene; the others in the scene in their joint limits")
+    g = np.load(port_data("ant_standin.npz"))
+    if int(g["big_envs"]) != ANT_ENVS or int(g["big_steps"]) != ANT_STEPS:
+        raise RuntimeError(f"{name}: the golden's JAX statistics are of another run")
+    for what, got in (("reset share", share), ("left share", left_share),
+                      ("mean torso height of the others", height)):
+        key = {"reset share": "reset", "left share": "left"}.get(what, "height")
+        jit, op = float(g[f"big_{key}_jit"]), float(g[f"big_{key}_opbyop"])
+        slack = ANT_SLACK_FACTOR * abs(jit - op)
+        log(f"{name}: {what} {got:.6f}; JAX package {jit:.6f} jitted, {op:.6f} op by op; "
+            f"slack {slack:.6f} ({ANT_SLACK_FACTOR:g} x their difference)")
+        if abs(got - jit) > slack:
+            raise RuntimeError(f"{name}: the {what} departs from the JAX package's")
+    profile_steps(lambda st: [env.step(a) for a in acts[:ANT_PROFILE_STEPS]], None, step_ms,
+                  ANT_PROFILE_STEPS)
+
+    small = rl_env.make(task="Ant", num_envs=int(g["num_envs"]), sim_device=DEV, rl_device=DEV)
+    small.reset()
+    errs = []
+    for k in range(int(g["horizon"])):
+        o, r, d, _ = small.step(g["actions"][k])
+        errs.append(max(rel_err(o, g["obs"][k]), rel_err(r, g["reward"][k])))
+        if not np.array_equal(d.cpu().numpy(), g["done"][k]):
+            raise RuntimeError(f"{name}: done departs from the golden at step {k + 1}")
+    worst = max(errs)
+    log(f"{name}: {int(g['num_envs'])} envs vs ant_standin.npz (obs, reward every step to the "
+        f"horizon {int(g['horizon'])}): max |err| of largest magnitude {worst:.3e} (step "
+        f"{int(np.argmax(errs)) + 1}; every 8th step: "
+        f"{', '.join(f'{e:.1e}' for e in errs[7::8])})")
+    if worst > GOLDEN_TOL:
+        raise RuntimeError(f"{name} departs from the golden: {worst:.3e} > {GOLDEN_TOL}")
+    frame = small.render()
+    rgba, _, seg = small.camera_images(seg=np.arange(1, len(small._rtables.kind) + 1,
+                                                      dtype=np.int32))
+    if not np.array_equal(frame, rgba[..., :3].cpu().numpy()):
+        raise RuntimeError(f"{name}: render() is not camera_images()'s colour")
+    frame_check(f"{name} render()", rgba, seg, g["frame"], g["frame_seg"])
+
+
+def reach_phase(kernels) -> None:
+    """make(task="Franka") at REACH_ENVS envs: a step with host syncs made
+    errors, REACH_STEPS timed steps with the kernels' counts read around them
+    (the sphere-world count must stay 0), the state finite and in its limits,
+    and the 8-env golden."""
+    from test_isaacgym_tpu_torch.envs import rl_env
+
+    name = f"franka_reach{REACH_ENVS}"
+    t = time.perf_counter()
+    env = rl_env.make(task="Franka", num_envs=REACH_ENVS, sim_device=DEV, rl_device=DEV)
+    log(f"{name}: {REACH_ENVS} envs built in {time.perf_counter() - t:.2f} s")
+    acts = torch.as_tensor(np.random.RandomState(0).uniform(-1, 1, (REACH_STEPS, REACH_ENVS, 7))
+                           .astype(np.float32), device=DEV)
+    env.reset()
+    env.step(acts[0])  # warm
+    log(f"{name}: {count_ops(lambda: env.step(acts[0]))} non-view PyTorch ops a step")
+    assert_sync_free(lambda: env.step(acts[0]), name)
+
+    def run():
+        env.reset()
+        for k in range(REACH_STEPS):
+            obs, rew, _, _ = env.step(acts[k])
+        return obs, rew
+
+    (obs, rew), step_ms, launches = timed(run, kernels, name, REACH_STEPS, REACH_ENVS, "env")
+    if launches.get("sphere_world", 0):
+        raise RuntimeError(f"{name} launched the sphere-world kernel: {launches}")
+    assert_finite(env.state, name)
+    assert_in_limits(env.state, env.sim.params, name)
+    log(f"{name}: mean reward after {REACH_STEPS} steps {float(rew.mean()):.6f}")
+
+    g = np.load(port_data("franka_reach_standin.npz"))
+    n, every = int(g["num_envs"]), int(g["every"])
+    small = rl_env.make(task="Franka", num_envs=n, sim_device=DEV, rl_device=DEV)
+    sa = np.random.RandomState(0).uniform(-1, 1, (int(g["steps"]), n, 7)).astype(np.float32)
+    worst = rel_err(small.reset(), g["obs"][0])
+    for k in range(int(g["steps"])):
+        o, r, _, _ = small.step(sa[k])
+        if (k + 1) % every == 0:
+            i = (k + 1) // every
+            worst = max(worst, rel_err(o, g["obs"][i]), rel_err(r, g["reward"][i]))
+    log(f"{name}: {n} envs vs franka_reach_standin.npz (obs, reward every {every} steps): "
+        f"max |err| of largest magnitude {worst:.3e}")
+    if worst > GOLDEN_TOL:
+        raise RuntimeError(f"{name} departs from the golden: {worst:.3e} > {GOLDEN_TOL}")
+
+
+def no_kernel_launches(kernels, what) -> None:
+    """The hand-written kernels' counts of a run of a path that has none:
+    recorded by path, and each must be 0."""
+    launches = dict(kernels.launches)
+    PATH_LAUNCHES[what] = launches.get("sphere_world", 0)
+    log(f"{what}: sphere_world launches {PATH_LAUNCHES[what]}")
+    if any(launches.values()):
+        raise RuntimeError(f"{what} launched hand-written kernels: {launches}")
+
+
+def nut_scene_render(raster, sim, tb, width, height, seg=None):
+    """One package's render of env 0 of a FrankaNutBoltEnv sim from
+    bench.py's render camera: (rgba, depth, seg) of that env, each with the
+    env axis. `raster` is the package's render.raster module and `tb` its
+    tables of the scene (built once, as a viewer does); `seg` (S,) replaces
+    the scene's segmentation ids. tools/make_rl_goldens.py calls it with the
+    JAX package's module."""
+    from test_isaacgym_tpu_torch.render.camera import look_at_quat
+
+    sp, sq = raster.shape_world_poses(sim.state, sim.params, tb, sim.scene)
+    org = np.asarray(sim.scene.env_origins[0], np.float32)
+    eye = (np.asarray(RENDER_EYE, np.float32) + org)[None]
+    quat = look_at_quat(RENDER_EYE, RENDER_TARGET).astype(np.float32)[None]
+    g = sim.scene.ground
+    ground = np.array([*np.asarray(g.normal, np.float32) / np.linalg.norm(g.normal), g.distance],
+                      np.float32)
+    light = (np.array([-0.3, -0.3, -0.9], np.float32) / np.linalg.norm([0.3, 0.3, 0.9]),
+             np.full(3, 0.8, np.float32), np.full(3, 0.25, np.float32),
+             np.array([0.32, 0.45, 0.6], np.float32))
+    kw = dict(mesh_rows=tuple(int(r) for r in tb.mesh_rows), mesh_planes=tb.mesh_planes,
+              mesh_base=tb.mesh_base, tri_shape=tuple(int(r) for r in tb.tri_shape),
+              tri_v=tb.tri_v, tri_n=tb.tri_n,
+              tri_base=tuple(tuple(float(x) for x in row)
+                             for row in np.asarray(sim.scene.shapes.size, np.float32)))
+    if torch.is_tensor(sp):  # the port: tensors on the sim's device
+        eye, quat = (torch.as_tensor(x, device=sp.device) for x in (eye, quat))
+    return raster.render_camera_batch(
+        eye, quat, sp[:1], sq[:1], sim.params.shape_size[:1], tb.kind, tb.color,
+        tb.seg if seg is None else seg, ground, *light, 90.0, width=width, height=height,
+        far=100.0, **kw)[:3]
+
+
+def render_phase(kernels) -> None:
+    """bench.py's render config on one env of the FrankaNutBoltEnv scene:
+    the tables hold triangle and hull rows, RENDER_FRAMES timed frames at
+    RENDER_SIZE, two frames bitwise equal, and RENDER_SMALL of the same
+    camera against render_standin.npz."""
+    from test_isaacgym_tpu_torch.envs.franka_nut_bolt import FrankaNutBoltEnv
+    from test_isaacgym_tpu_torch.render import raster
+
+    w, h = RENDER_SIZE
+    name = f"render{w}x{h}"
+    sim = FrankaNutBoltEnv(num_envs=1, device=DEV).sim
+    tb = raster.tables_from_scene(sim.scene)
+    log(f"{name}: {len(tb.kind)} shapes, {len(tb.tri_shape)} visual triangles (of shape rows "
+        f"{sorted(set(tb.tri_shape.tolist()))}), {len(tb.mesh_rows)} hull rows of "
+        f"{tb.mesh_planes.shape[1]} planes")
+    if not (len(tb.tri_shape) and len(tb.mesh_rows)):
+        raise RuntimeError(f"{name}: the scene's tables lack triangle or hull rows")
+    seg = np.arange(1, len(tb.kind) + 1, dtype=np.int32)
+    frame = lambda: nut_scene_render(raster, sim, tb, w, h, seg)  # noqa: E731
+    first = frame()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    t = time.perf_counter()
+    for _ in range(RENDER_FRAMES):
+        out = frame()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / RENDER_FRAMES * 1e3
+    no_kernel_launches(kernels, name)
+    hit = float(torch.isfinite(out[1]).float().mean())
+    log(f"{name}: {ms:.4f} ms/frame over {RENDER_FRAMES} frames ({w * h} rays a frame), "
+        f"{hit:.4f} of the pixels hit, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not all(torch.equal(a, b) for a, b in zip(first, out)):
+        raise RuntimeError(f"{name}: two frames of the same scene differ")
+    log(f"{name}: {count_ops(frame)} non-view PyTorch ops a frame")
+    profile_steps(lambda _: frame(), None, ms, 1, "frame")
+
+    g = np.load(port_data("render_standin.npz"))
+    rgba, depth, seg_img = (x[0] for x in nut_scene_render(raster, sim, tb, *RENDER_SMALL, seg))
+    frame_check(f"{name} at {RENDER_SMALL[0]}x{RENDER_SMALL[1]}", rgba, seg_img,
+                g["rgba"][..., :3], g["seg"])
+    d, wd = depth.cpu().numpy(), g["depth"]
+    both = np.isfinite(d) & np.isfinite(wd)
+    derr = float(np.abs(np.where(both, d, 0.0) - np.where(both, wd, 0.0)).max())
+    log(f"{name}: depth where both hit within {derr:.3e} m")
+
+
+def camera_phase(kernels) -> None:
+    """A CAMERA_SIZE CameraSensor on each of ANT_ENVS Ant envs: CAMERA_FRAMES
+    frames, each after randomize_colors, randomize_light and
+    randomize_camera_pose drawn from a generator on the card; timed; a second
+    run from the same seed bitwise equal."""
+    from test_isaacgym_tpu_torch import randomize as dr
+    from test_isaacgym_tpu_torch.core.config import CameraProperties
+    from test_isaacgym_tpu_torch.envs import rl_env
+    from test_isaacgym_tpu_torch.render import raster
+    from test_isaacgym_tpu_torch.render.camera import CameraSensor
+
+    w, h = CAMERA_SIZE
+    name = f"ant_camera{ANT_ENVS}"
+    env = rl_env.make(task="Ant", num_envs=ANT_ENVS, sim_device=DEV, rl_device=DEV)
+    env.reset()
+    sim, st = env.sim, env.state
+    tb = raster.tables_from_scene(sim.scene)
+    sp, sq = raster.shape_world_poses(st, sim.params, tb, sim.scene)
+    base = torch.as_tensor(tb.color, device=DEV).expand(ANT_ENVS, -1, -1)
+    origins = sim.env_origins
+    cam = CameraSensor(props=CameraProperties(width=w, height=h), num_envs=ANT_ENVS, device=DEV)
+    bg, ground = np.array([0.32, 0.45, 0.6], np.float32), np.array([0, 0, 1, 0], np.float32)
+
+    def frames():
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        out = []
+        for _ in range(CAMERA_FRAMES):
+            colors = dr.randomize_colors(gen, base)
+            light, ambient, d = dr.randomize_light(gen, DEV)
+            pos, tgt = dr.randomize_camera_pose(gen, ANT_ENVS, (0.0, 0.0, 0.4), device=DEV)
+            cam.set_locations(pos, tgt)
+            cp, cq = cam.world_pose(st, origins)
+            out.append(raster.render_camera_batch(
+                cp, cq, sp, sq, sim.params.shape_size, tb.kind, colors, tb.seg, ground, d,
+                light, ambient, bg, cam.props.horizontal_fov, width=w, height=h, far=100.0)[:3])
+        return out
+
+    frames()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.clear()
+    t = time.perf_counter()
+    a = frames()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    no_kernel_launches(kernels, name)
+    log(f"{name}: {CAMERA_FRAMES} frames of {ANT_ENVS} {w}x{h} cameras in {wall:.3f} s: "
+        f"{wall / CAMERA_FRAMES * 1e3:.4f} ms/frame, {ANT_ENVS * CAMERA_FRAMES / wall:.1f} "
+        f"env-frames/s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{name}: {count_ops(frames) // CAMERA_FRAMES} non-view PyTorch ops a frame "
+        "(randomizers included)")
+    profile_steps(lambda _: frames(), None, wall / CAMERA_FRAMES * 1e3, CAMERA_FRAMES, "frame")
+    rgba = a[-1][0]
+    hit = float(torch.isfinite(a[-1][1]).float().mean())
+    log(f"{name}: last frame {tuple(rgba.shape)} {rgba.dtype}, {hit:.4f} of the pixels hit, "
+        f"colour std {float(rgba[..., :3].float().std()):.2f}")
+    if rgba.shape != (ANT_ENVS, h, w, 4) or rgba.dtype != torch.uint8 or hit == 0.0:
+        raise RuntimeError(f"{name}: the frames are wrong")
+    b = frames()
+    if not all(torch.equal(x, y) for fa, fb in zip(a, b) for x, y in zip(fa, fb)):
+        raise RuntimeError(f"{name}: two runs from the same seed differ")
+    log(f"{name}: two runs of {CAMERA_FRAMES} frames from the same seed are bitwise equal")
+
+
 def cube_phase(kernels) -> None:
     """The franka_cube pick path at CUBE_ENVS envs under OSC: a timed run
     with the hand-written kernels' counts read around it (the path has none,
@@ -1573,6 +1936,14 @@ def main() -> int:
     # ---- 10. soft bodies: the XPBD tet solve of examples/soft_body.py,
     # with its own counts ----
     soft_body_phase(_kernels)
+
+    # ---- 11. the RL vec-envs and the renderer: the Ant and the Franka
+    # reach through make(), each with its own counts; bench.py's render
+    # config; a camera on every Ant env ----
+    ant_phase(_kernels)
+    reach_phase(_kernels)
+    render_phase(_kernels)
+    camera_phase(_kernels)
 
     log("sphere_world launches by main path: "
         + ", ".join(f"{k} {v}" for k, v in PATH_LAUNCHES.items()))

@@ -13,9 +13,15 @@ mass-matrix functions); the contact table of primitive shapes, convex hulls,
 heightfield terrain and SDF probes (voxel grids and closed forms); FEM soft
 bodies (the XPBD tet solve with one-way colliders, physics/soft.py); mesh
 loading (OBJ, STL, DAE) into convex hulls, `create_mesh_asset` and the URDF
-importer with <mesh> geometry, <sdf> collision and <fem> links; the SDF grids and the
-procedural bolt (assets/sdf.py); the terrain_utils generators; OSC/IK
-control, CCLVF guidance, the visual servo and the camera projection; the
+importer with <mesh> geometry, <sdf> collision, <fem> links and mesh
+materials; the MJCF importer (assets/mjcf.py); convex decomposition through
+the native VHACD tool (assets/vhacd.py); the SDF grids and the procedural
+bolt (assets/sdf.py); the terrain_utils generators; domain randomization
+(randomize.py, drawn from a torch.Generator); OSC/IK control, CCLVF
+guidance, the visual servo; cameras (render/camera.py: CameraSensor and the
+projection) and the batched ray-cast renderer (render/raster.py:
+primitives, hulls, visual triangle meshes, soft surfaces, debug lines,
+textures, per-env fov, supersampling, the frustum cull, optical flow); the
 TIG_DEBUG checks (utils/debug.py); and the envs and scenes that drive them:
   - `test_isaacgym_tpu_torch.envs.balls.BallsEnv`
   - `test_isaacgym_tpu_torch.envs.franka.FrankaOscEnv` (the flagship; its
@@ -32,9 +38,12 @@ TIG_DEBUG checks (utils/debug.py); and the envs and scenes that drive them:
   - `test_isaacgym_tpu_torch.envs.soft_body` (FEM tet icospheres on the
     XPBD solve: the reference's soft-body example and a pedestal scene;
     its default asset is the code-built icosphere stand-in in assets/data/)
+  - `test_isaacgym_tpu_torch.envs.rl_env.make` (the isaacgymenvs.make
+    surface: `AntVecEnv` on the code-written Ant stand-in in assets/data/,
+    `FrankaReachVecEnv`; reset/step return tensors, render() a frame)
   - `test_isaacgym_tpu_torch.core.sim.Simulator`
   - `test_isaacgym_tpu_torch.core.scene.SceneBuilder`
-Rendering and the gym facade are not in the package yet.
+The gym facade is not in the package yet.
 """
 
 __version__ = "0.1.0"

@@ -16,8 +16,8 @@ Port of test_isaacgym_tpu/assets/urdf.py (host numpy, no torch). Handles:
     both taken before hulling (the reference's nut-bolt URDFs)
   - `<fem>` soft-body links: a `<tetmesh>` `.tet` file, the material tags
     and the origin (physics/soft.py simulates the mesh)
-`use_mesh_materials` is a later slice of the port (ROADMAP.md Queue 1,
-item 12).
+  - `use_mesh_materials`: a visual OBJ's MTL diffuse colors override the
+    URDF's `<material>` (AssetOptions.use_mesh_materials)
 """
 from __future__ import annotations
 
@@ -160,6 +160,37 @@ def _parse_geometry(geo_el, origin_el, urdf_dir, asset_root, load_meshes):
 _sdf_res_warned = set()
 
 
+def mesh_material_color(mesh_path: str):
+    """Mean diffuse (Kd) color of an OBJ's MTL materials, or None.
+
+    AssetOptions.use_mesh_materials pulls materials from the mesh file
+    instead of the URDF override (the reference's examples/
+    graphics_materials.py:77-88). The renderer shades one albedo per shape,
+    so mesh-level materials reduce to the mean Kd. Best effort, as in the
+    JAX package: a file that cannot be read or parsed gives None."""
+    try:
+        if not mesh_path or not mesh_path.lower().endswith(".obj"):
+            return None
+        mtl = None
+        with open(mesh_path) as f:
+            for line in f:
+                if line.startswith("mtllib"):
+                    mtl = os.path.join(os.path.dirname(mesh_path), line.split(None, 1)[1].strip())
+                    break
+        if mtl is None or not os.path.exists(mtl):
+            return None
+        kds = []
+        with open(mtl) as f:
+            for line in f:
+                if line.startswith("Kd "):
+                    kds.append([float(x) for x in line.split()[1:4]])
+        if not kds:
+            return None
+        return tuple(np.mean(np.asarray(kds), axis=0).tolist())
+    except Exception:  # noqa: BLE001 — material parsing is best-effort
+        return None
+
+
 def _log_sdf_res_once(path: str, requested: int) -> None:
     """All SDF grids in a scene stack into one (K, R, R, R) device tensor, so
     per-asset `<sdf resolution>` requests are quantized to assets.sdf.SDF_RES;
@@ -184,6 +215,7 @@ def load_urdf(
     armature: float = 0.0,
     load_meshes: bool = True,
     max_hull_verts: int = 64,
+    use_mesh_materials: bool = False,
 ) -> AssetSpec:
     path = os.path.join(asset_root, filename)
     tree = ET.parse(path)
@@ -251,6 +283,10 @@ def load_urdf(
                     if col is not None:
                         rgba = _floats(col.get("rgba"), [0.7, 0.7, 0.7, 1])
                         g.color = tuple(rgba[:3])
+                if use_mesh_materials and g.kind == GEOM_MESH:
+                    mc = mesh_material_color(g.mesh_path)
+                    if mc is not None:
+                        g.color = mc  # mesh file materials win
                 l.visuals.append(g)
         # propagate visual color to the link's collision geoms (the renderer
         # ray-casts collision proxies; visual-only colors would be invisible)

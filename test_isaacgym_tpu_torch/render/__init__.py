@@ -1,1 +1,2 @@
-"""Camera projection (render/camera.py). Rendering itself is not ported yet."""
+"""Cameras (render/camera.py) and the batched ray-cast renderer
+(render/raster.py, render/meshtools.py)."""

@@ -42,15 +42,16 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_import_walk_reaches_the_sdf_modules():
-    """The walk above imports the SDF and soft-body slices too: their
-    modules are in the package tree."""
+    """The walk above imports the SDF, soft-body, RL-env and renderer slices
+    too: their modules are in the package tree."""
     import pkgutil
 
     import test_isaacgym_tpu_torch as pkg
 
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
     for mod in ("assets.sdf", "envs.nut_bolt", "envs.franka_nut_bolt", "physics.contacts",
-                "physics.soft", "envs.soft_body"):
+                "physics.soft", "envs.soft_body", "assets.mjcf", "assets.vhacd", "randomize",
+                "envs.rl_env", "render.raster", "render.meshtools", "render.camera"):
         assert f"test_isaacgym_tpu_torch.{mod}" in names, mod
 
 
@@ -80,16 +81,23 @@ def test_entry_points_default_to_cuda():
     from test_isaacgym_tpu_torch.envs.franka_nut_bolt import FrankaNutBoltEnv
     from test_isaacgym_tpu_torch.envs.nut_bolt import NutBoltEnv
     from test_isaacgym_tpu_torch.envs.soft_body import pedestals_sim, soft_body_sim
+    from test_isaacgym_tpu_torch.envs.rl_env import AntVecEnv, FrankaReachVecEnv, make
     from test_isaacgym_tpu_torch.envs.uav_car import UavCarEnv
     from test_isaacgym_tpu_torch.physics.soft import SoftStepper
     from test_isaacgym_tpu_torch.physics.step import Stepper
+    from test_isaacgym_tpu_torch.randomize import randomize_camera_pose, randomize_light
+    from test_isaacgym_tpu_torch.render.camera import CameraSensor
 
     for env in (BallsEnv, UavCarEnv, FrankaOscEnv, FrankaCubeEnv, NutBoltEnv, FrankaNutBoltEnv):
         fields = {f.name: f.default for f in dataclasses.fields(env)}
         assert fields["device"] == "cuda", env
     for fn in (Simulator.__init__, SceneBuilder.finalize, Stepper.__init__, make_sim,
-               SoftStepper.__init__, soft_body_sim, pedestals_sim):
+               SoftStepper.__init__, soft_body_sim, pedestals_sim, AntVecEnv.__init__,
+               FrankaReachVecEnv.__init__, randomize_light, randomize_camera_pose):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert {f.name: f.default for f in dataclasses.fields(CameraSensor)}["device"] == "cuda"
+    for arg in ("sim_device", "rl_device"):
+        assert inspect.signature(make).parameters[arg].default == "cuda:0"
 
 
 def test_default_device_does_not_fall_back_to_cpu():

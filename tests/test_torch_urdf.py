@@ -5,7 +5,8 @@ packages (links, inertials, joints, limits, dof properties), with and without
 collapse_fixed; primitive geometry parses alike; <sdf> collision on a mesh
 gives the JAX package's grid (bitwise), probes and resolution, and on a box
 is ignored by both; and <fem> soft-body links load the JAX package's tet
-mesh, materials and origin. <mesh> geometry is held by
+mesh, materials and origin; use_mesh_materials takes an OBJ's MTL colors
+as the JAX package does. <mesh> geometry is held by
 tests/test_torch_mesh.py.
 """
 import numpy as np
@@ -157,3 +158,36 @@ def test_sdf_collision_like_jax(tmp_path, monkeypatch, element):
     np.testing.assert_array_equal(g.sdf_samples, w.sdf_samples)
     assert g.sdf_samples.shape == (256, 3) and g.sdf.analytic is None
     np.testing.assert_array_equal(g.center(), w.center())
+
+
+_MATERIAL_URDF = """<robot name="painted">
+  <link name="a">
+    <visual><geometry><mesh filename="{obj}"/></geometry>
+      <material name="grey"><color rgba="0.5 0.5 0.5 1"/></material></visual>
+    <collision><geometry><mesh filename="{obj}"/></geometry></collision>
+  </link>
+</robot>
+"""
+_CUBE_OBJ = "".join(f"v {x} {y} {z}\n" for x in (0, 0.1) for y in (0, 0.1) for z in (0, 0.1)) + (
+    "f 1 2 4\nf 1 4 3\nf 5 7 8\nf 5 8 6\nf 1 5 6\nf 1 6 2\n"
+    "f 3 4 8\nf 3 8 7\nf 1 3 7\nf 1 7 5\nf 2 6 8\nf 2 8 4\n")
+
+
+@pytest.mark.parametrize("mtl", ["good", "unparsable", "missing"])
+@pytest.mark.parametrize("use", [False, True])
+def test_use_mesh_materials_like_jax(tmp_path, mtl, use):
+    """use_mesh_materials: an OBJ's MTL diffuse colors (their mean) win over
+    the URDF material, on the visual and the collision geom it colors; an
+    MTL that does not parse or is missing keeps the URDF color (the JAX
+    package's best-effort reading)."""
+    (tmp_path / "cube.obj").write_text("mtllib cube.mtl\n" + _CUBE_OBJ)
+    if mtl != "missing":
+        kd = "Kd 1.0 0.2 0.0\nKd 0.6 0.4 0.2\n" if mtl == "good" else "Kd one two three\n"
+        (tmp_path / "cube.mtl").write_text("newmtl red\n" + kd)
+    (tmp_path / "p.urdf").write_text(_MATERIAL_URDF.format(obj="cube.obj"))
+    got = load_urdf(str(tmp_path), "p.urdf", use_mesh_materials=use)
+    want = jax_load_urdf(str(tmp_path), "p.urdf", use_mesh_materials=use)
+    _same_asset(got, want)
+    expect = (0.8, 0.3, 0.1) if use and mtl == "good" else (0.5, 0.5, 0.5)
+    for g in got.links[0].visuals + got.links[0].geoms:
+        assert g.color == pytest.approx(expect)

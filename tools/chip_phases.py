@@ -15,6 +15,10 @@ takes the kernel module (box_phase, pile_phase hull, ...):
     nut_bolt       nut_bolt_phase: 1024 nuts spun down the bolt
     franka_nut_bolt  franka_nut_bolt_phase: the 512-env screw FSM
     soft_body      soft_body_phase: 1024 envs of the XPBD tet icosphere
+    ant            ant_phase: make(task="Ant"), 4096 envs of the Ant stand-in
+    franka_reach   reach_phase: make(task="Franka"), 4096 envs
+    render         render_phase: bench.py's 1600 x 900 render config
+    ant_camera     camera_phase: a 64 x 48 camera on each of 4096 Ant envs
 
 The kernels are built from ROOT's sources first. Each phase prints what it
 prints in chip_smoke.py (ms/step, rates, busy share, ops a step, its
@@ -64,6 +68,14 @@ def main(root, phases):
             cs.franka_nut_bolt_phase(_kernels)
         elif name == "soft_body":
             cs.soft_body_phase(_kernels)
+        elif name == "ant":
+            cs.ant_phase(_kernels)
+        elif name == "franka_reach":
+            cs.reach_phase(_kernels)
+        elif name == "render":
+            cs.render_phase(_kernels)
+        elif name == "ant_camera":
+            cs.camera_phase(_kernels)
         else:
             raise SystemExit(f"unknown phase {name!r}")
         cs.log(f"phase {name}: {time.perf_counter() - t:.1f} s")
