@@ -68,7 +68,24 @@ the JAX frame), make(task="Franka") at 4096 envs for 60 steps (8 envs to
 franka_reach_standin.npz), bench.py's render config at 1600 x 900 on one
 env of the FrankaNutBoltEnv scene (its triangle and hull passes; 160 x 90
 against render_standin.npz), and a 64 x 48 CameraSensor on each of the
-4096 Ant envs for 10 domain-randomized frames, two runs bitwise equal. It
+4096 Ant envs for 10 domain-randomized frames, two runs bitwise equal; last
+the gymapi facade (gymapi/facade.py, envs/gym_scenes.py) driven as the
+reference's scripts drive it, each path with its counts read around its
+run and a step (simulate, refresh_*, set_*) with host syncs made errors:
+1080_balls_of_solitude.py --all_collisions as gym calls (one create_env, a
+create_actor a ball), 400 steps of simulate + refresh_actor_root_state_tensor
+through the sphere-world kernel (exactly 800 launches), balls1080's bounds
+read from the wrapped tensors, whose storage the refreshes keep, the KEY_R
+snapshot reset bit for bit, and 120 balls against gym_balls_standin.npz;
+examples/franka_osc.py's build and loop at 4096 envs on the Panda stand-in
+(the rigid-body, DOF, Jacobian and mass-matrix tensors wrapped, the OSC on
+the card, 300 steps), its mean tracking error under the example's 0.12 m
+and within 10% of the JAX facade's, the native FrankaOscEnv's ms/step
+beside it, and 8 envs against gym_franka_osc_standin.npz; and
+examples/interop_torch.py's scene at 1024 envs (a ball and a 128 x 128
+camera with enable_tensors in each), 30 frames of simulate, render and the
+image tensor on the card (its data_address its data_ptr), two runs bitwise
+equal, env 0's frame against gym_interop_standin.npz. It
 prints:
   * the card's name and power limit (nvidia-smi);
   * per-phase numbers (build seconds, kernel and plain times, each launch's
@@ -243,10 +260,28 @@ RENDER_EYE, RENDER_TARGET = (1.6, 0.9, 0.9), (0.0, 0.0, 0.4)
 # (examples/domain_randomization.py:27's camera), CAMERA_FRAMES frames each
 # after randomize_colors, randomize_light and randomize_camera_pose
 CAMERA_SIZE, CAMERA_FRAMES = (64, 48), 10
+# the gymapi facade (gymapi/facade.py) driven as the reference's scripts
+# drive it (envs/gym_scenes.py): the 1080 balls through gym calls, GYM_BALL_STEPS
+# of simulate + refresh_actor_root_state_tensor, balls1080's bounds, and the
+# 120-ball run against gym_balls_standin.npz; examples/franka_osc.py's loop at
+# GYM_OSC_ENVS envs, GYM_OSC_STEPS steps (the example's), its mean tracking
+# error after step 150 under the example's GYM_OSC_BOUND m and within
+# GYM_OSC_RTOL of the JAX facade's (gym_franka_osc_standin.npz: every env
+# tracks the same circle from the same pose, so the JAX facade's 8 envs give
+# the mean at any width), 8 envs against that golden, and the native
+# FrankaOscEnv's ms/step beside it (NATIVE_STEPS steps where this call has not
+# timed franka4096); examples/interop_torch.py's scene at GYM_CAMERA_ENVS
+# envs, GYM_CAMERA_FRAMES frames of simulate, render and the image tensor, two
+# runs bitwise equal, env 0's frame against gym_interop_standin.npz
+GYM_BALL_STEPS = 400
+GYM_OSC_ENVS, GYM_OSC_STEPS, GYM_OSC_BOUND, GYM_OSC_RTOL = 4096, 300, 0.12, 0.10
+NATIVE_STEPS = 50
+GYM_CAMERA_ENVS, GYM_CAMERA_FRAMES = 1024, 30
 # the device of every phase's envs ("cpu" only in a rehearsal of the phases on the CPU)
 DEV = "cuda"
-# sphere-world launches of each main path's timed run, by path
+# sphere-world launches and ms/step of each main path's timed run, by path
 PATH_LAUNCHES = {}
+STEP_MS = {}
 
 
 def log(*a):
@@ -626,6 +661,7 @@ def timed(run, kernels, what, steps, width, unit):
     wall = time.perf_counter() - t
     launches = dict(kernels.launches)
     PATH_LAUNCHES[what] = launches.get("sphere_world", 0)
+    STEP_MS[what] = wall / steps * 1e3
     log(f"{what} main path: {steps} steps of {width} {unit} in {wall:.3f} s: "
         f"{width * steps / wall:.1f} {unit}-steps/s, {wall / steps * 1e3:.4f} ms/step, "
         f"sphere_world launches {launches.get('sphere_world', 0)}")
@@ -1805,6 +1841,242 @@ def cube_phase(kernels) -> None:
             raise RuntimeError(f"franka_cube {ctrl} departs from the golden: {worst:.3e} > {GOLDEN_TOL}")
 
 
+def gym_balls_phase(kernels) -> None:
+    """The 1080 balls built through gym calls (one create_env, a
+    create_actor a ball) in one env: GYM_BALL_STEPS steps of simulate +
+    refresh_actor_root_state_tensor with the kernels' counts read around
+    them (exactly 2 sphere-world launches a step), balls1080's bounds read
+    from the wrapped root and contact tensors, the root tensor's storage
+    unchanged by the refreshes, a step with host syncs made errors, a
+    profile, the KEY_R snapshot reset restoring the first state bit for
+    bit, and the 120-ball run against gym_balls_standin.npz."""
+    from test_isaacgym_tpu_torch import gymapi, gymtorch
+    from test_isaacgym_tpu_torch.envs import gym_scenes
+    from test_isaacgym_tpu_torch.ops.sphere_world import LAUNCHES_PER_SOLVE
+
+    name = "gym_balls1080"
+    t = time.perf_counter()
+    gym, sim, env = gym_scenes.balls(gymapi, 36, {"device": DEV})
+    snapshot = np.copy(gym.get_sim_rigid_body_states(sim, gymapi.STATE_ALL))
+    root = gymtorch.wrap_tensor(gym.acquire_actor_root_state_tensor(sim))
+    contact = gymtorch.wrap_tensor(gym.acquire_net_contact_force_tensor(sim))
+    torch.cuda.synchronize()
+    F, first, ptr = root.shape[0], root.clone(), root.data_ptr()
+    log(f"{name}: {F} balls built through gym calls in {time.perf_counter() - t:.2f} s")
+
+    def step():
+        gym.simulate(sim)
+        gym.refresh_actor_root_state_tensor(sim)
+
+    def run():
+        for _ in range(GYM_BALL_STEPS):
+            step()
+
+    _, step_ms, launches = timed(run, kernels, name, GYM_BALL_STEPS, F, "ball")
+    want = GYM_BALL_STEPS * LAUNCHES_PER_SOLVE
+    if launches.get("sphere_world", 0) != want:
+        raise RuntimeError(f"{name} launched the kernel {launches} times, want {want}")
+    gym.refresh_net_contact_force_tensor(sim)
+    zmin, zmax = float(root[:, 2].min()), float(root[:, 2].max())
+    fz = float(contact[:, 2].max())
+    log(f"{name} end state (wrapped root tensor): zmin {zmin:.4f} zmax {zmax:.4f} max ground "
+        f"force {fz:.4f}; the tensor's data_ptr unchanged: {root.data_ptr() == ptr}")
+    if not (zmin > 0.15 and zmax < 3.0 and fz > 0):
+        raise RuntimeError(f"{name} sank, exploded or lost ground support")
+    if root.data_ptr() != ptr or root.device.type != torch.device(DEV).type:
+        raise RuntimeError(f"{name}: the wrapped root tensor moved or left the card")
+    log(f"{name}: {count_ops(step)} non-view PyTorch ops a step (simulate + refresh)")
+    assert_sync_free(lambda: (step(), gym.set_actor_root_state_tensor(sim, root)), name)
+    profile_steps(lambda _: [step() for _ in range(PROFILE_STEPS)], None, step_ms, PROFILE_STEPS)
+
+    viewer = gym.create_viewer(sim, gymapi.CameraProperties())
+    gym.subscribe_viewer_keyboard_event(viewer, gymapi.KEY_R, "reset")
+    viewer.inject_event(gymapi.KEY_R)
+    for ev in gym.query_viewer_action_events(viewer):
+        if ev.action == "reset":
+            gym.set_sim_rigid_body_states(sim, snapshot, gymapi.STATE_ALL)
+    gym.refresh_actor_root_state_tensor(sim)
+    if not torch.equal(root, first):
+        raise RuntimeError(f"{name}: the KEY_R snapshot reset did not restore the first state")
+    log(f"{name}: the KEY_R snapshot reset restored the first state bit for bit")
+
+    g = np.load(port_data("gym_balls_standin.npz"))
+    every = int(g["every"])
+    gym, sim, env = gym_scenes.balls(gymapi, 4, {"device": DEV})
+    small = gymtorch.wrap_tensor(gym.acquire_actor_root_state_tensor(sim))
+
+    def advance(_):
+        for _ in range(every):
+            gym.simulate(sim)
+        gym.refresh_actor_root_state_tensor(sim)
+        return small
+
+    worst = golden_err({"pos": g["pos"]}, small, lambda r: {"pos": r[:, :3]}, advance)
+    log(f"{name}: {small.shape[0]} balls vs gym_balls_standin.npz (positions every {every} steps "
+        f"to {every * (len(g['pos']) - 1)}): max |err| of largest magnitude {worst:.3e}")
+    if worst > GOLDEN_TOL:
+        raise RuntimeError(f"{name}: the 120-ball run departs from the golden: {worst:.3e}")
+
+
+def gym_franka_osc_phase(kernels) -> None:
+    """examples/franka_osc.py through the facade at GYM_OSC_ENVS envs on the
+    Panda stand-in: the build's seconds, GYM_OSC_STEPS steps of the
+    example's loop (refresh the rigid-body, DOF, Jacobian and mass-matrix
+    tensors, the OSC on the card, set_dof_actuation_force_tensor, simulate,
+    fetch_results) with the kernels' counts read around them (none), the
+    mean tracking error, a step with host syncs made errors, a profile, the
+    native FrankaOscEnv's ms/step beside it, and 8 envs against
+    gym_franka_osc_standin.npz."""
+    from test_isaacgym_tpu_torch import gymapi, gymtorch
+    from test_isaacgym_tpu_torch.envs import gym_scenes
+
+    name = f"gym_franka_osc{GYM_OSC_ENVS}"
+    t = time.perf_counter()
+    gym, sim, scene = gym_scenes.franka_osc(gymapi, GYM_OSC_ENVS, sim_kw={"device": DEV})
+    t_calls = time.perf_counter() - t
+    loop = gym_scenes.OscLoop(gym, gymapi, gymtorch, sim, scene)
+    torch.cuda.synchronize()
+    log(f"{name}: built in {time.perf_counter() - t:.2f} s ({t_calls:.2f} s of per-env gym "
+        f"calls, the rest prepare_sim and the tensor handles)")
+    dof0 = loop.dof.clone()
+    for itr in range(2):  # warm: allocator and library handles
+        loop.step(itr)
+    gym.set_dof_state_tensor(sim, dof0)
+    loop.err_sum.zero_()
+    loop.err_steps = 0
+
+    def run():
+        for itr in range(GYM_OSC_STEPS):
+            loop.step(itr)
+
+    _, step_ms, launches = timed(run, kernels, name, GYM_OSC_STEPS, GYM_OSC_ENVS, "env")
+    if any(launches.values()):
+        raise RuntimeError(f"{name} launched hand-written kernels: {launches}")
+    s = sim.sim.state
+    assert_finite(s, name)
+    g = np.load(port_data("gym_franka_osc_standin.npz"))
+    err, jax_err = loop.mean_error(), float(g["track_err"])
+    log(f"{name}: mean tracking error after step {gym_scenes.OSC_SETTLE} {err:.6f} m (bound "
+        f"{GYM_OSC_BOUND}; the JAX facade's 8 envs {jax_err:.6f}, within {GYM_OSC_RTOL:.0%})")
+    if not (err < GYM_OSC_BOUND and abs(err - jax_err) <= GYM_OSC_RTOL * jax_err):
+        raise RuntimeError(f"{name}: tracking error {err:.6f} m")
+    log(f"{name}: {count_ops(lambda: loop.step(0, fetch=False))} non-view PyTorch ops a step "
+        "(refreshes, the example's OSC, set, simulate)")
+    loop.refresh()
+    u = loop.torque(0)[2]
+
+    def sync_free_step():
+        loop.refresh()
+        gym.set_dof_actuation_force_tensor(sim, gymtorch.unwrap_tensor(u))
+        gym.simulate(sim)
+
+    assert_sync_free(sync_free_step, name)
+    profile_steps(lambda _: [loop.step(i) for i in range(3)], None, step_ms, 3)
+
+    native = STEP_MS.get("franka")
+    if native is None:
+        from test_isaacgym_tpu_torch.envs.franka import FrankaOscEnv
+
+        env = FrankaOscEnv(num_envs=GYM_OSC_ENVS, device=DEV)
+        env.rollout_fn(2)(env.sim.state)
+        run_native = env.rollout_fn(NATIVE_STEPS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_native(env.sim.state)
+        torch.cuda.synchronize()
+        native = (time.perf_counter() - t) / NATIVE_STEPS * 1e3
+        del env
+    log(f"{name}: {step_ms:.4f} ms/step through the facade; the native FrankaOscEnv "
+        f"{native:.4f} ms/step in this call: {step_ms / native:.3f}x")
+
+    n, every = int(g["num_envs"]), int(g["every"])
+    gym, sim, scene = gym_scenes.franka_osc(gymapi, n, sim_kw={"device": DEV})
+    small = gym_scenes.OscLoop(gym, gymapi, gymtorch, sim, scene)
+    worst = 0.0
+    for itr in range(every * (len(g["hand_pos"]) - 1) + 1):
+        if itr % every == 0:
+            snap = small.snapshot()
+            for key in ("hand_pos", "dof_pos"):
+                want = g[key][itr // every]
+                worst = max(worst, float(np.abs(snap[key] - want).max())
+                            / max(float(np.abs(want).max()), 1.0))
+        small.step(itr)
+    log(f"{name}: {n} envs vs gym_franka_osc_standin.npz (hand_pos, dof_pos every {every} "
+        f"steps): max |err| of largest magnitude {worst:.3e}")
+    if worst > GOLDEN_TOL:
+        raise RuntimeError(f"{name} departs from the golden: {worst:.3e} > {GOLDEN_TOL}")
+
+
+def gym_interop_phase(kernels) -> None:
+    """examples/interop_torch.py's scene at GYM_CAMERA_ENVS envs (a ball and a
+    128 x 128 camera with enable_tensors in each): the build's seconds,
+    GYM_CAMERA_FRAMES frames of simulate + render_all_camera_sensors +
+    start/end_access_image_tensors + get_camera_image_gpu_tensor with the
+    kernels' counts read around them (none); the image tensors on the card,
+    their data_address their data_ptr, aliasing the sensor's image across
+    frames; a second run from the same roots bitwise equal; env 0's frame
+    against gym_interop_standin.npz; a step with host syncs made errors."""
+    from test_isaacgym_tpu_torch import gymapi, gymtorch
+    from test_isaacgym_tpu_torch.envs import gym_scenes
+
+    name = f"gym_interop{GYM_CAMERA_ENVS}"
+    t = time.perf_counter()
+    gym, sim, envs, cams = gym_scenes.interop(gymapi, GYM_CAMERA_ENVS, {"device": DEV})
+    gym.prepare_sim(sim)
+    root = gymtorch.wrap_tensor(gym.acquire_actor_root_state_tensor(sim))
+    root0 = root.clone()
+    torch.cuda.synchronize()
+    log(f"{name}: {GYM_CAMERA_ENVS} envs with a {gym_scenes.CAMERA_SIZE}^2 camera each built "
+        f"in {time.perf_counter() - t:.2f} s")
+
+    def frame():
+        return gym_scenes.interop_frame(gym, gymapi, gymtorch, sim, envs[0], cams[0])
+
+    def run():
+        gym.set_actor_root_state_tensor(sim, root0)
+        ptrs = set()
+        for _ in range(GYM_CAMERA_FRAMES):
+            img = frame()
+            h = gym.get_camera_image_gpu_tensor(sim, envs[0], cams[0], gymapi.IMAGE_COLOR)
+            if h.data_address != img.data_ptr() or img.device.type != torch.device(DEV).type:
+                raise RuntimeError(f"{name}: the image tensor is not the handle's, on the card")
+            ptrs.add(img.data_ptr())
+        if len(ptrs) != 1:
+            raise RuntimeError(f"{name}: the image tensor moved between frames")
+        sensor = sim.cameras[cams[0]]
+        return img, [x.clone() for x in (sensor.color, sensor.depth, sensor.segmentation)]
+
+    frame()  # warm
+    torch.cuda.reset_peak_memory_stats()
+    (img, a), step_ms, launches = timed(run, kernels, name, GYM_CAMERA_FRAMES, GYM_CAMERA_ENVS,
+                                        "env")
+    no_kernel_launches(kernels, name)
+    log(f"{name}: {step_ms:.4f} ms/frame (physics, render of {GYM_CAMERA_ENVS * 128 * 128} rays, "
+        f"the image tensor), {GYM_CAMERA_ENVS / step_ms * 1e3:.1f} env-frames/s, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"image tensor {tuple(img.shape)} {img.dtype} on {img.device}")
+    _, b = run()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise RuntimeError(f"{name}: two runs from the same roots differ")
+    log(f"{name}: two runs of {GYM_CAMERA_FRAMES} frames are bitwise equal (colour, depth and "
+        f"segmentation of all {GYM_CAMERA_ENVS} envs)")
+    g = np.load(port_data("gym_interop_standin.npz"))
+    frame_check(f"{name} env 0 after {int(g['frames'])} frames", a[0][0], a[2][0], g["rgb"],
+                g["seg"])
+    log(f"{name}: {count_ops(frame)} non-view PyTorch ops a frame")
+    assert_sync_free(lambda: (gym.simulate(sim), gym.refresh_actor_root_state_tensor(sim),
+                              gym.set_actor_root_state_tensor(sim, root)), name)
+    profile_steps(lambda _: [frame() for _ in range(5)], None, step_ms, 5, "frame")
+
+
+def phase_timed(fn, *args):
+    """fn(*args), its wall seconds logged (the script's time limit is
+    shared by every phase)."""
+    t = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1813,6 +2085,7 @@ def main() -> int:
     from test_isaacgym_tpu_torch.ops import _kernels
     from test_isaacgym_tpu_torch.ops import sphere_world as sw
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1899,52 +2172,62 @@ def main() -> int:
     if worst > GOLDEN_TOL:
         raise RuntimeError(f"120-ball drop departs from the golden: {worst:.3e} > {GOLDEN_TOL}")
 
+    log(f"phase kernel checks, balls and the 120-ball drop: {time.perf_counter() - t_start:.1f} s")
+
     # ---- 5. the flagship Franka OSC path, with its own counts ----
-    franka_phase(_kernels)
+    phase_timed(franka_phase, _kernels)
 
     # ---- 6. the franka_cube pick path (the contact table), with its own counts ----
-    cube_phase(_kernels)
+    phase_timed(cube_phase, _kernels)
 
     # ---- 7. attractors, the UAV-car pursuit, the neighbor-list worlds (the
     # mixed one beside the sphere-world kernel), each with its own counts,
     # and the TIG_DEBUG checks ----
-    attractor_phase(_kernels)
-    uav_phase(_kernels)
-    box_phase(_kernels)
-    err_mixed = mixed_phase(_kernels, sw)
+    phase_timed(attractor_phase, _kernels)
+    phase_timed(uav_phase, _kernels)
+    phase_timed(box_phase, _kernels)
+    err_mixed = phase_timed(mixed_phase, _kernels, sw)
     log(f"sphere_world vs plain on the mixed world: max |err| {err_mixed:.3e}")
-    debug_phase()
+    phase_timed(debug_phase)
 
     # ---- 8. convex hulls and terrain: kuka_bin.py's objects on a ground
     # and over the AnymalTerrain map (no kernel), and the 1080 balls over a
     # bowl (the kernel without ground), each with its own counts ----
     from test_isaacgym_tpu_torch.envs import pile
 
-    pile_phase(_kernels, "hull_pile4096")
+    phase_timed(pile_phase, _kernels, "hull_pile4096")
     t = time.perf_counter()
     terrain = pile.anymal_terrain()
     log(f"terrain map {terrain[0].shape} made in {time.perf_counter() - t:.2f} s")
-    pile_phase(_kernels, "terrain4096", terrain)
-    err_terrain = balls_terrain_phase(_kernels, sw)
+    phase_timed(pile_phase, _kernels, "terrain4096", terrain)
+    err_terrain = phase_timed(balls_terrain_phase, _kernels, sw)
     log(f"sphere_world vs plain on the balls over terrain: max |err| {err_terrain:.3e}")
 
     # ---- 9. SDF contact: the nut spun down the bolt, and the arm-driven
     # screw FSM, each with its own counts ----
-    nut_bolt_phase(_kernels)
-    franka_nut_bolt_phase(_kernels)
+    phase_timed(nut_bolt_phase, _kernels)
+    phase_timed(franka_nut_bolt_phase, _kernels)
 
     # ---- 10. soft bodies: the XPBD tet solve of examples/soft_body.py,
     # with its own counts ----
-    soft_body_phase(_kernels)
+    phase_timed(soft_body_phase, _kernels)
 
     # ---- 11. the RL vec-envs and the renderer: the Ant and the Franka
     # reach through make(), each with its own counts; bench.py's render
     # config; a camera on every Ant env ----
-    ant_phase(_kernels)
-    reach_phase(_kernels)
-    render_phase(_kernels)
-    camera_phase(_kernels)
+    phase_timed(ant_phase, _kernels)
+    phase_timed(reach_phase, _kernels)
+    phase_timed(render_phase, _kernels)
+    phase_timed(camera_phase, _kernels)
 
+    # ---- 12. the gymapi facade as the reference's scripts drive it: the
+    # 1080 balls through gym calls (the kernel), franka_osc.py's loop, and
+    # interop_torch.py's camera tensors, each with its own counts ----
+    phase_timed(gym_balls_phase, _kernels)
+    phase_timed(gym_franka_osc_phase, _kernels)
+    phase_timed(gym_interop_phase, _kernels)
+
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     log("sphere_world launches by main path: "
         + ", ".join(f"{k} {v}" for k, v in PATH_LAUNCHES.items()))
     log(json.dumps({"kernels": [{

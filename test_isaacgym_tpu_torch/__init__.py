@@ -43,7 +43,10 @@ TIG_DEBUG checks (utils/debug.py); and the envs and scenes that drive them:
     `FrankaReachVecEnv`; reset/step return tensors, render() a frame)
   - `test_isaacgym_tpu_torch.core.sim.Simulator`
   - `test_isaacgym_tpu_torch.core.scene.SceneBuilder`
-The gym facade is not in the package yet.
+  - `test_isaacgym_tpu_torch.gymapi` (the reference-compatible facade:
+    `acquire_gym()`, handles, the classic and tensor state APIs, cameras,
+    a headless viewer; its tensor handles live on the sim's device) with
+    `gymtorch`, `gymutil` and `torch_utils`
 """
 
 __version__ = "0.1.0"

@@ -4,9 +4,9 @@ SURVEY.md §5.6; field inventory from the reference's test/test01_isaacgym_asset
 and examples/franka_cube_ik_osc.py:111-126).
 
 These are host-side dataclasses; the scene builder bakes them into device
-tensors at finalize time. A copy of test_isaacgym_tpu/core/config.py without
-TriangleMeshParams and HeightFieldParams, which need the gymapi facade's
-Transform and come with the facade's slice of the port.
+tensors at finalize time. A copy of test_isaacgym_tpu/core/config.py;
+TriangleMeshParams and HeightFieldParams default their `transform` to the
+facade's gymapi.Transform.
 """
 from __future__ import annotations
 
@@ -181,3 +181,40 @@ class AttractorProperties:
     rigid_handle: int = -1
     target: Optional[object] = None  # Transform
     offset: Optional[object] = None  # Transform
+
+
+@dataclasses.dataclass
+class TriangleMeshParams:
+    nb_vertices: int = 0
+    nb_triangles: int = 0
+    transform: Optional[object] = None
+    static_friction: float = 1.0
+    dynamic_friction: float = 1.0
+    restitution: float = 0.0
+
+    def __post_init__(self):
+        if self.transform is None:
+            from ..gymapi.mathtypes import Transform
+
+            self.transform = Transform()
+
+
+@dataclasses.dataclass
+class HeightFieldParams:
+    """gym.add_heightfield parameter block."""
+
+    nbRows: int = 0
+    nbColumns: int = 0
+    column_scale: float = 1.0
+    row_scale: float = 1.0
+    vertical_scale: float = 1.0
+    transform: Optional[object] = None
+    static_friction: float = 1.0
+    dynamic_friction: float = 1.0
+    restitution: float = 0.0
+
+    def __post_init__(self):
+        if self.transform is None:
+            from ..gymapi.mathtypes import Transform
+
+            self.transform = Transform()

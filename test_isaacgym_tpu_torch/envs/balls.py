@@ -28,6 +28,32 @@ from ..core.sim import Simulator
 from ..core.state import SimState
 
 
+def pyramid_positions(pyramids: int, base: int = 4, radius: float = 0.2,
+                      seed: int = 17) -> np.ndarray:
+    """(n, 3) ball centres of `pyramids` pyramids of `base` x `base` layers
+    on a grid of 2.5 m cells (the reference's env_spacing 1.25), each
+    jittered by RandomState(seed), balls 2.5 radii apart (reference :107),
+    the lowest layer at 1.5 m."""
+    rng = np.random.RandomState(seed)
+    spacing = 2.5 * radius
+    grid = int(np.ceil(np.sqrt(pyramids)))
+    cell = 2.5
+    jitter = rng.uniform(-0.01, 0.01, (pyramids, 2))
+    out = []
+    for p in range(pyramids):
+        cx = (p % grid - (grid - 1) / 2) * cell + jitter[p, 0]
+        cy = (p // grid - (grid - 1) / 2) * cell + jitter[p, 1]
+        n, z = base, 1.5
+        while n > 0:
+            m = -0.5 * (n - 1) * spacing
+            for i in range(n):
+                for j in range(n):
+                    out.append((cx + m + i * spacing, cy + m + j * spacing, z))
+            z += spacing
+            n -= 1
+    return np.array(out)
+
+
 @dataclasses.dataclass
 class BallsEnv:
     num_worlds: int = 1
@@ -51,35 +77,12 @@ class BallsEnv:
             b.add_ground(PlaneParams())
         else:
             b.add_heightfield(*self.heightfield)
-        rng = np.random.RandomState(self.seed)
-        spacing = 2.5 * self.radius  # reference :107
-        grid = int(np.ceil(np.sqrt(self.pyramids)))
-        cell = 2.5  # env cell pitch (env_spacing 1.25 -> 2.5 m)
-        jitter = rng.uniform(-0.01, 0.01, (self.pyramids, 2))
+        centres = pyramid_positions(self.pyramids, self.base, self.radius, self.seed)
         for w in range(self.num_worlds):
             b.create_env((-8, -8, 0), (8, 8, 8), 1)
-            k = 0
-            for p in range(self.pyramids):
-                cx = (p % grid - (grid - 1) / 2) * cell + jitter[p, 0]
-                cy = (p // grid - (grid - 1) / 2) * cell + jitter[p, 1]
-                n = self.base
-                z = 1.5
-                while n > 0:
-                    m = -0.5 * (n - 1) * spacing
-                    for i in range(n):
-                        for j in range(n):
-                            b.create_actor(
-                                w,
-                                ball,
-                                pos=(cx + m + i * spacing, cy + m + j * spacing, z),
-                                name=f"ball{k}",
-                                group=0,
-                                filter=0,
-                            )
-                            k += 1
-                    z += spacing
-                    n -= 1
-        self.balls_per_world = k
+            for k, pos in enumerate(centres):
+                b.create_actor(w, ball, pos=tuple(pos), name=f"ball{k}", group=0, filter=0)
+        self.balls_per_world = len(centres)
         self.sim = Simulator(*b.finalize(self.device), device=self.device)
 
     # ------------------------------------------------------------------

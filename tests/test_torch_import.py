@@ -43,7 +43,8 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
 
 def test_import_walk_reaches_the_sdf_modules():
     """The walk above imports the SDF, soft-body, RL-env and renderer slices
-    too: their modules are in the package tree."""
+    and the gymapi facade with its compat modules too: their modules are in
+    the package tree."""
     import pkgutil
 
     import test_isaacgym_tpu_torch as pkg
@@ -51,7 +52,9 @@ def test_import_walk_reaches_the_sdf_modules():
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
     for mod in ("assets.sdf", "envs.nut_bolt", "envs.franka_nut_bolt", "physics.contacts",
                 "physics.soft", "envs.soft_body", "assets.mjcf", "assets.vhacd", "randomize",
-                "envs.rl_env", "render.raster", "render.meshtools", "render.camera"):
+                "envs.rl_env", "render.raster", "render.meshtools", "render.camera",
+                "gymapi", "gymapi.facade", "gymapi.mathtypes", "gymtorch", "gymutil",
+                "torch_utils", "envs.gym_scenes"):
         assert f"test_isaacgym_tpu_torch.{mod}" in names, mod
 
 
@@ -98,13 +101,29 @@ def test_entry_points_default_to_cuda():
     assert {f.name: f.default for f in dataclasses.fields(CameraSensor)}["device"] == "cuda"
     for arg in ("sim_device", "rl_device"):
         assert inspect.signature(make).parameters[arg].default == "cuda:0"
+    from test_isaacgym_tpu_torch import gymapi, gymutil, torch_utils
+
+    sim = gymapi.acquire_gym().create_sim(1, 0, gymapi.SIM_PHYSX, gymapi.SimParams())
+    assert sim.device == torch.device("cuda:1")
+    assert gymapi.acquire_gym().create_sim().device == torch.device("cuda:0")
+    assert inspect.signature(torch_utils.to_torch).parameters["device"].default == "cuda:0"
+    assert gymutil.parse_arguments(args=[]).sim_device == "cuda:0"
 
 
 def test_default_device_does_not_fall_back_to_cpu():
     """Without a GPU the default entry point fails; it never moves to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from test_isaacgym_tpu_torch import gymapi, torch_utils
     from test_isaacgym_tpu_torch.envs.balls import BallsEnv
 
     with pytest.raises((RuntimeError, AssertionError)):
         BallsEnv(pyramids=4)
+    gym = gymapi.acquire_gym()
+    sim = gym.create_sim(0, 0, gymapi.SIM_PHYSX, gymapi.SimParams())
+    env = gym.create_env(sim, gymapi.Vec3(-1, -1, 0), gymapi.Vec3(1, 1, 1), 1)
+    gym.create_actor(env, gym.create_sphere(sim, 0.1), gymapi.Transform(), "ball")
+    with pytest.raises((RuntimeError, AssertionError)):
+        gym.prepare_sim(sim)
+    with pytest.raises((RuntimeError, AssertionError)):
+        torch_utils.to_torch([1.0])

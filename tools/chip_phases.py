@@ -19,6 +19,9 @@ takes the kernel module (box_phase, pile_phase hull, ...):
     franka_reach   reach_phase: make(task="Franka"), 4096 envs
     render         render_phase: bench.py's 1600 x 900 render config
     ant_camera     camera_phase: a 64 x 48 camera on each of 4096 Ant envs
+    gym_balls      gym_balls_phase: the 1080 balls through the gymapi facade
+    gym_franka_osc gym_franka_osc_phase: examples/franka_osc.py's loop, 4096 envs
+    gym_interop    gym_interop_phase: examples/interop_torch.py, 1024 cameras
 
 The kernels are built from ROOT's sources first. Each phase prints what it
 prints in chip_smoke.py (ms/step, rates, busy share, ops a step, its
@@ -76,6 +79,12 @@ def main(root, phases):
             cs.render_phase(_kernels)
         elif name == "ant_camera":
             cs.camera_phase(_kernels)
+        elif name == "gym_balls":
+            cs.gym_balls_phase(_kernels)
+        elif name == "gym_franka_osc":
+            cs.gym_franka_osc_phase(_kernels)
+        elif name == "gym_interop":
+            cs.gym_interop_phase(_kernels)
         else:
             raise SystemExit(f"unknown phase {name!r}")
         cs.log(f"phase {name}: {time.perf_counter() - t:.1f} s")
