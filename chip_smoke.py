@@ -85,7 +85,14 @@ beside it, and 8 envs against gym_franka_osc_standin.npz; and
 examples/interop_torch.py's scene at 1024 envs (a ball and a 128 x 128
 camera with enable_tensors in each), 30 frames of simulate, render and the
 image tensor on the card (its data_address its data_ptr), two runs bitwise
-equal, env 0's frame against gym_interop_standin.npz. It
+equal, env 0's frame against gym_interop_standin.npz; last env-axis
+sharding (parallel/mesh.py) at world size 1 over NCCL, joined in this
+process on a free localhost port: bench.py's _bench_sharded config, the
+full Franka OSC step at 1024 envs through rollout_with_obs for 20 steps,
+its gathered dof_pos against the native FrankaOscEnv rollout and the
+gather's share of a step, and 4 worlds of 1080 balls for 40 steps through
+the sphere-world kernel (launches counted exactly) held to the unsharded
+run, the contact force summed by psum_metrics. It
 prints:
   * the card's name and power limit (nvidia-smi);
   * per-phase numbers (build seconds, kernel and plain times, each launch's
@@ -277,6 +284,18 @@ GYM_BALL_STEPS = 400
 GYM_OSC_ENVS, GYM_OSC_STEPS, GYM_OSC_BOUND, GYM_OSC_RTOL = 4096, 300, 0.12, 0.10
 NATIVE_STEPS = 50
 GYM_CAMERA_ENVS, GYM_CAMERA_FRAMES = 1024, 30
+# env-axis sharding over torch.distributed (parallel/mesh.py), one rank a
+# card: bench.py's _bench_sharded config, the full Franka OSC step through
+# rollout_with_obs with obs dof_pos, SHARD_ENVS envs a rank for SHARD_STEPS
+# steps, the gathered obs against the native FrankaOscEnv rollout of all the
+# envs within GOLDEN_TOL * max(|ref|, 1); BallsEnv with SHARD_WORLDS worlds of
+# 1080 balls a rank, SHARD_BALL_STEPS steps through the sphere-world kernel
+# (exactly 2 launches a solve), the positions within SOLVE_TOL of the largest
+# magnitude of the unsharded run, the contact force summed over ranks by
+# psum_metrics. Here in one process at world size 1 over NCCL;
+# tools/chip_phases.py's `sharded` runs a rank a card.
+SHARD_ENVS, SHARD_STEPS, SHARD_WORLDS, SHARD_BALL_STEPS = 1024, 20, 4, 40
+SHARD_TIMEOUT = 300  # seconds a collective waits for a peer
 # the device of every phase's envs ("cpu" only in a rehearsal of the phases on the CPU)
 DEV = "cuda"
 # sphere-world launches and ms/step of each main path's timed run, by path
@@ -507,7 +526,7 @@ def franka_layers(env, state) -> None:
     st, params, actions = env.sim.stepper, env.sim.params, env.sim.actions
     layers = {
         "control (jacobian, mass matrix, 7x7 and 6x6 solves)":
-            lambda: env._control(state, state.steps, params),
+            lambda: env._control(state, state.steps, params=params),
         "phase A, body cache reused (dynamics, 9x9 solve)":
             lambda: st.group_velocities(state, actions, params, True),
         "phase A with FK": lambda: st.group_velocities(state, actions, params, False),
@@ -2068,6 +2087,182 @@ def gym_interop_phase(kernels) -> None:
     profile_steps(lambda _: [frame() for _ in range(5)], None, step_ms, 5, "frame")
 
 
+def free_port() -> int:
+    """A free TCP port on this host for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_checks(kernels, envs_per_rank=SHARD_ENVS, steps=SHARD_STEPS,
+                   worlds_per_rank=SHARD_WORLDS, ball_steps=SHARD_BALL_STEPS) -> None:
+    """The sharded paths on the process group this rank joined (one rank a
+    card): the full Franka OSC step through rollout_with_obs (obs dof_pos)
+    at envs_per_rank envs a rank with the kernels' counts read around it
+    (none), its env-steps/s per rank and in aggregate, the gather's share of
+    a step (rollout_with_obs against shard_step over the same steps, in
+    turns, and the gather alone), the gathered obs against the native
+    FrankaOscEnv rollout of all the envs on rank 0 (and rank 0 alone at
+    envs_per_rank envs); then BallsEnv at worlds_per_rank worlds a rank
+    through the sphere-world kernel (exactly 2 launches a solve), the final
+    positions gathered and held to the unsharded run, the contact force
+    summed over ranks by psum_metrics. Raises on any mismatch."""
+    import torch.distributed as dist
+
+    from test_isaacgym_tpu_torch.envs.balls import BallsEnv
+    from test_isaacgym_tpu_torch.envs.franka import FrankaOscEnv
+    from test_isaacgym_tpu_torch.ops.sphere_world import LAUNCHES_PER_SOLVE
+    from test_isaacgym_tpu_torch.parallel import mesh as pm
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = pm.make_env_mesh()
+    n = envs_per_rank * world
+    name = f"sharded_franka{world}x{envs_per_rank}"
+    t = time.perf_counter()
+    env = FrankaOscEnv(num_envs=n, device=DEV)
+    sim = env.sim
+    st, ac, pa = (pm.shard_env_tree(x, mesh, n) for x in (sim.state, sim.actions, sim.params))
+    refs = pm.shard_env_tree((env.init_hand_pos, env.init_hand_quat, env.origins), mesh, n)
+    log(f"{name} rank {rank}: {n} envs built, {envs_per_rank} kept, on {st.dof_pos.device} "
+        f"({dist.get_backend()}) in {time.perf_counter() - t:.2f} s")
+
+    def step_fn(s, a, p):
+        return env._step_impl(s, a, p, s.steps, refs)
+
+    def obs_fn(s):
+        return s.dof_pos
+
+    run = pm.rollout_with_obs(step_fn, obs_fn, mesh, st, ac, pa, steps)
+    step = pm.shard_step(step_fn, mesh, st, ac, pa)
+
+    def plain():
+        s = st
+        for _ in range(steps):
+            s = step(s, ac, pa)
+        return s
+
+    pm.rollout_with_obs(step_fn, obs_fn, mesh, st, ac, pa, 2)(st, ac, pa)  # warm
+    dist.barrier()
+    (final, obs), ms_gather, launches = timed(lambda: run(st, ac, pa), kernels, name, steps,
+                                              envs_per_rank, "env")
+    if any(launches.values()):
+        raise RuntimeError(f"{name} launched hand-written kernels: {launches}")
+    if tuple(obs.shape) != (steps, n, 9) or not torch.isfinite(obs).all():
+        raise RuntimeError(f"{name}: gathered obs {tuple(obs.shape)} not finite or not (steps, N, 9)")
+    assert_finite(final, name)
+    turns = {"plain": [], "gather": [ms_gather]}
+    for which, fn in (("plain", plain), ("gather", lambda: run(st, ac, pa)), ("plain", plain)):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        turns[which].append((time.perf_counter() - t) / steps * 1e3)
+    ms_plain, ms_gather = (float(np.mean(turns[k])) for k in ("plain", "gather"))
+    local = obs_fn(final)
+    gather = lambda: pm.gather_obs(local, mesh=mesh)  # noqa: E731
+    gather()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(50):
+        gather()
+    torch.cuda.synchronize()
+    ms_one = (time.perf_counter() - t) / 50 * 1e3
+    worst = torch.tensor([ms_gather, ms_plain], dtype=torch.float64, device=local.device)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    log(f"{name} rank {rank}: {ms_gather:.4f} ms/step with the gather ({turns['gather']}), "
+        f"{ms_plain:.4f} without ({turns['plain']}): {envs_per_rank / ms_gather * 1e3:.1f} "
+        f"env-steps/s a rank; the gather's share of a step {1 - ms_plain / ms_gather:+.4f} "
+        f"(difference of the runs), {ms_one:.4f} ms a gather of {tuple(local.shape)} alone "
+        f"= {ms_one / ms_gather:.4%} of a step")
+    if rank == 0:
+        log(f"{name}: {world} ranks x {envs_per_rank} envs: {n / float(worst[0]) * 1e3:.1f} "
+            f"env-steps/s in aggregate with the gather (slowest rank {float(worst[0]):.4f} "
+            f"ms/step), {n / float(worst[1]) * 1e3:.1f} without")
+        native = env.rollout_fn(1)
+        s, want = sim.state, []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            s = native(s)
+            want.append(s.dof_pos)
+        torch.cuda.synchronize()
+        ms_native = (time.perf_counter() - t) / steps * 1e3
+        want = torch.stack(want)
+        err = float((obs - want).abs().max()) / max(float(want.abs().max()), 1.0)
+        log(f"{name}: gathered obs vs the native FrankaOscEnv rollout of {n} envs over {steps} "
+            f"steps: bitwise {torch.equal(obs, want)}, max |err| of largest magnitude {err:.3e}; "
+            f"the native {n} envs {ms_native:.4f} ms/step ({n / ms_native * 1e3:.1f} env-steps/s)")
+        if err > GOLDEN_TOL:
+            raise RuntimeError(f"{name}: gathered obs depart from the native rollout: {err:.3e}")
+        if world > 1:
+            alone = FrankaOscEnv(num_envs=envs_per_rank, device=DEV)
+            one = alone.rollout_fn(steps)
+            one(alone.rollout_fn(2)(alone.sim.state))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            one(alone.sim.state)
+            torch.cuda.synchronize()
+            ms_alone = (time.perf_counter() - t) / steps * 1e3
+            log(f"{name}: one rank alone at {envs_per_rank} envs {ms_alone:.4f} ms/step "
+                f"({envs_per_rank / ms_alone * 1e3:.1f} env-steps/s); {world} ranks in aggregate "
+                f"{(n / float(worst[0])) / (envs_per_rank / ms_alone):.3f}x it")
+            del alone, one
+    del env, sim, st, ac, pa, refs, final, obs
+    dist.barrier()
+
+    name = f"sharded_balls{world}x{worlds_per_rank}"
+    nw = worlds_per_rank * world
+    benv = BallsEnv(num_worlds=nw, device=DEV)
+    bsim = benv.sim
+    bs, ba, bp = (pm.shard_env_tree(x, mesh, nw) for x in (bsim.state, bsim.actions, bsim.params))
+    brun = pm.shard_step(lambda s, a, p: bsim.stepper.rollout(s, a, p, ball_steps), mesh, bs, ba, bp)
+    dist.barrier()
+    out, _, launches = timed(lambda: brun(bs, ba, bp), kernels, name, ball_steps,
+                             worlds_per_rank * benv.balls_per_world, "ball")
+    want_launches = ball_steps * LAUNCHES_PER_SOLVE
+    if launches.get("sphere_world", 0) != want_launches:
+        raise RuntimeError(f"{name} rank {rank} launched the kernel {launches} times, "
+                           f"want {want_launches}")
+    assert_finite(out, name)
+    pos = pm.gather_obs(out.root_pos, mesh=mesh)
+    force = pm.psum_metrics(out.contact_force.sum((0, 1)), mesh)
+    log(f"{name} rank {rank}: {launches['sphere_world']} sphere_world launches in {ball_steps} "
+        f"steps of {worlds_per_rank} worlds")
+    if rank == 0:
+        ref = benv.rollout_fn(ball_steps)(bsim.state)
+        _, rel = max_rel_err([ref.root_pos], [pos])
+        want_f = ref.contact_force.sum((0, 1))
+        f_err = float((force - want_f).abs().max()) / max(float(want_f.abs().max()), 1.0)
+        log(f"{name}: {nw} worlds over {world} ranks vs one process: positions bitwise "
+            f"{torch.equal(pos, ref.root_pos)}, max |err| of largest magnitude {rel:.3e}; summed "
+            f"contact force {force.tolist()} vs {want_f.tolist()} ({f_err:.3e})")
+        if rel > SOLVE_TOL or f_err > SOLVE_TOL:
+            raise RuntimeError(f"{name}: the sharded balls depart from the unsharded run")
+        if not float(force[2]) > 0:
+            raise RuntimeError(f"{name}: no ground contact after {ball_steps} steps")
+    dist.barrier()
+
+
+def sharded_phase(kernels) -> None:
+    """sharded_checks at world size 1, in this process: NCCL on the card
+    through init_distributed on a free localhost port."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from test_isaacgym_tpu_torch.parallel import mesh as pm
+
+    pm.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=DEV,
+                        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
+    try:
+        sharded_checks(kernels)
+    finally:
+        dist.destroy_process_group()
+
+
 def phase_timed(fn, *args):
     """fn(*args), its wall seconds logged (the script's time limit is
     shared by every phase)."""
@@ -2227,6 +2422,10 @@ def main() -> int:
     phase_timed(gym_franka_osc_phase, _kernels)
     phase_timed(gym_interop_phase, _kernels)
 
+    # ---- 13. env-axis sharding: the Franka OSC and balls paths through
+    # parallel/mesh.py at world size 1 over NCCL, each with its own counts ----
+    phase_timed(sharded_phase, _kernels)
+
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     log("sphere_world launches by main path: "
         + ", ".join(f"{k} {v}" for k, v in PATH_LAUNCHES.items()))
@@ -2235,7 +2434,7 @@ def main() -> int:
         "route": "cuda",
         "source": "test_isaacgym_tpu_torch/csrc/sphere_world.cu",
         "replaces": "test_isaacgym_tpu/ops/sphere_world.py:334",
-        "launches": launches["sphere_world"],
+        "launches": launches["sphere_world"] + PATH_LAUNCHES[f"sharded_balls1x{SHARD_WORLDS}"],
         "max_abs_err": err_1080,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

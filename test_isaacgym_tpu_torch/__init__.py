@@ -47,6 +47,9 @@ TIG_DEBUG checks (utils/debug.py); and the envs and scenes that drive them:
     `acquire_gym()`, handles, the classic and tensor state APIs, cameras,
     a headless viewer; its tensor handles live on the sim's device) with
     `gymtorch`, `gymutil` and `torch_utils`
+  - `test_isaacgym_tpu_torch.parallel.mesh` (envs sharded over the ranks
+    of `torch.distributed`, one process a device, the obs all-gather and
+    the metric sums at the loop boundary: NCCL on the card, gloo on the CPU)
 """
 
 __version__ = "0.1.0"

@@ -97,11 +97,18 @@ class FrankaOscEnv:
         self.init_hand_quat = st.body_quat[:, self.hand_body]
 
     # ------------------------------------------------------------------
-    def _control(self, state: SimState, itr, params=None):
+    def _control(self, state: SimState, itr, refs=None, params=None):
         """OSC torque for circle tracking (franka_osc.py:215-245 semantics).
 
-        itr: the step count as a tensor (state.steps); `params` feeds the
-        runtime mass matrix's body params."""
+        itr: the step count as a tensor (state.steps). refs =
+        (init_hand_pos, init_hand_quat, origins), passed explicitly so that a
+        step on a shard of the envs reads its shard's targets (default: the
+        env's full-width ones); `params` feeds the runtime mass matrix's body
+        params."""
+        init_hand_pos, init_hand_quat, origins = (
+            refs if refs is not None
+            else (self.init_hand_pos, self.init_hand_quat, self.origins)
+        )
         j_eef = self._hand_jac_fn(state)[:, :, :7]  # (N, 6, 7)
         mm = self._mm_fn(state, params)  # (N, 9, 9)
         mm77 = mm[:, :7, :7]
@@ -112,13 +119,13 @@ class FrankaOscEnv:
         t = itr.to(torch.float32)
         pos_des = torch.stack(
             [
-                self.init_hand_pos[:, 0] - 0.1,
-                self.origins[:, 1] + torch.sin(t / 50.0) * 0.2,
-                self.init_hand_pos[:, 2] + torch.cos(t / 50.0) * 0.2,
+                init_hand_pos[:, 0] - 0.1,
+                origins[:, 1] + torch.sin(t / 50.0) * 0.2,
+                init_hand_pos[:, 2] + torch.cos(t / 50.0) * 0.2,
             ],
             dim=-1,
         )
-        orn_err = orientation_error(self.init_hand_quat, hand_quat)
+        orn_err = orientation_error(init_hand_quat, hand_quat)
         pos_err = self.kp * (pos_des - hand_pos)
         dpose = torch.cat([pos_err, orn_err], dim=-1)
 
@@ -133,8 +140,8 @@ class FrankaOscEnv:
         pos_target = torch.zeros_like(effort) + self._default_dof_pos
         return effort, pos_target
 
-    def _step_impl(self, state, actions, params, itr):
-        effort, pos_target = self._control(state, itr, params)
+    def _step_impl(self, state, actions, params, itr, refs=None):
+        effort, pos_target = self._control(state, itr, refs, params)
         actions = actions._replace(dof_effort=effort, dof_pos_target=pos_target)
         return self.sim.stepper.step(state, actions, params)
 

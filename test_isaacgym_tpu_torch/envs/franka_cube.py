@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -166,9 +166,10 @@ class FrankaCubeEnv:
         self._dof = torch.arange(self.dof0, self.dof0 + 9, device=dev)
 
     # ------------------------------------------------------------------
-    def step_fn(self, state: PickState):
+    def step_fn(self, state: PickState, _=None):
         """Grasp FSM + task-space control + physics (the reference's
-        :336-410). Returns (next PickState, (gripped (N,), box z (N,)))."""
+        :336-410). Returns (next PickState, (gripped (N,), box z (N,))); the
+        unused second argument is a scan's per-step input."""
         actions, hand_restart, gripped, box_z = self.control(state)
         st = self.sim.stepper.step(state.sim, actions, self.sim.params)
         return PickState(sim=st, hand_restart=hand_restart), (gripped, box_z)
@@ -253,19 +254,21 @@ class FrankaCubeEnv:
         return actions, hand_restart, gripped, box_pos[:, 2]
 
     # ------------------------------------------------------------------
+    def rollout(self, num_steps: int, state: Optional[PickState] = None):
+        """num_steps steps from `state` (init_state by default): (the end
+        state, (gripped, box z)), the per-step outputs stacked to
+        (num_steps, N) as the JAX package's lax.scan stacks them."""
+        state = self.init_state if state is None else state
+        gripped, box_z = [], []
+        for _ in range(num_steps):
+            state, (g, z) = self.step_fn(state)
+            gripped.append(g)
+            box_z.append(z)
+        return state, (torch.stack(gripped), torch.stack(box_z))
+
     def rollout_fn(self, num_steps: int):
-        """A callable state -> (state after num_steps steps, (gripped,
-        box z)), the per-step outputs stacked to (num_steps, N)."""
-
-        def run(state: PickState):
-            gripped, box_z = [], []
-            for _ in range(num_steps):
-                state, (g, z) = self.step_fn(state)
-                gripped.append(g)
-                box_z.append(z)
-            return state, (torch.stack(gripped), torch.stack(box_z))
-
-        return run
+        """rollout as a callable of the start state."""
+        return lambda state: self.rollout(num_steps, state)
 
     def box_height(self, state: PickState):
         return state.sim.root_pos[:, self.box_slot, 2]

@@ -409,7 +409,7 @@ class FrankaNutBoltEnv:
         )
         return actions, nxt, ang, err
 
-    def step_fn(self, state: ScrewState):
+    def step_fn(self, state: ScrewState, _=None):
         """FSM + IK control + physics. Returns (next ScrewState, (fsm before
         the step (N,), task-space error (N,)))."""
         actions, nxt, ang, err = self.control(state)

@@ -131,16 +131,23 @@ class NutBoltEnv:
         w = self._spin.expand(state.root_angvel.shape[0], 1, 3)
         return state._replace(root_angvel=state.root_angvel.index_copy(1, self._slot, w))
 
-    def rollout(self, num_steps: int, state: Optional[SimState] = None) -> SimState:
-        """num_steps steps from `state` (the initial state by default): each
-        re-imposes the nut's spin about +z (the kinematic drive of the
-        reference FSM's rotation phase) and lets SDF thread contact convert
-        it into descent."""
+    def rollout_fn(self, num_steps: int):
+        """A callable (state) -> state after num_steps steps: each re-imposes
+        the nut's spin about +z (the kinematic drive of the reference FSM's
+        rotation phase) and lets SDF thread contact convert it into
+        descent."""
         stp, actions, params = self.sim.stepper, self.sim.actions, self.sim.params
-        state = self.sim.state if state is None else state
-        for _ in range(num_steps):
-            state = stp.step(self._spun(state), actions, params)
-        return state
+
+        def run(state: SimState) -> SimState:
+            for _ in range(num_steps):
+                state = stp.step(self._spun(state), actions, params)
+            return state
+
+        return run
+
+    def rollout(self, num_steps: int, state: Optional[SimState] = None) -> SimState:
+        """rollout_fn's steps from `state` (the initial state by default)."""
+        return self.rollout_fn(num_steps)(self.sim.state if state is None else state)
 
     def nut_height(self, state: SimState):
         return state.root_pos[:, self.nut_slot, 2]

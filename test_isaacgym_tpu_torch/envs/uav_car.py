@@ -120,7 +120,7 @@ class UavCarEnv:
         return create_box(*fallback_box, density=200.0)
 
     # ------------------------------------------------------------------
-    def step_fn(self, state: ServoState):
+    def step_fn(self, state: ServoState, _=None):
         """One control + physics step: (new state, (pixel (N, 2), servo
         rpy (N, 3)))."""
         st = state.sim

@@ -406,19 +406,20 @@ def _cuda_solve(
     base = scratch.data_ptr()
     vel_o, om_o, cf_o = torch.empty((3, N, F, 3), dtype=torch.float32, device=dev).unbind(0)
     pn = spec.plane_n
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.sw_solve(
-        pos.data_ptr(), vel.data_ptr(), omega.data_ptr(), radius.data_ptr(),
-        inv_m.data_ptr(), inv_i.data_ptr(), mu.data_ptr(), rest.data_ptr(),
-        bits.data_ptr(), row_start.data_ptr(), spec.entries,
-        base, base + at_rows, base + at_lams, base + at_nbs,
-        vel_o.data_ptr(), om_o.data_ptr(), cf_o.data_ptr(),
-        N, F, iters,
-        h, contact_offset, slop, bounce_thresh,
-        float(pn[0]), float(pn[1]), float(pn[2]), float(spec.plane_d),
-        float(spec.plane_friction), float(spec.plane_restitution),
-        1 if spec.has_ground else 0, stream,
-    )
+    # the library launches on the current device: make it the tensors' one
+    with torch.cuda.device(dev):
+        err = lib.sw_solve(
+            pos.data_ptr(), vel.data_ptr(), omega.data_ptr(), radius.data_ptr(),
+            inv_m.data_ptr(), inv_i.data_ptr(), mu.data_ptr(), rest.data_ptr(),
+            bits.data_ptr(), row_start.data_ptr(), spec.entries,
+            base, base + at_rows, base + at_lams, base + at_nbs,
+            vel_o.data_ptr(), om_o.data_ptr(), cf_o.data_ptr(),
+            N, F, iters,
+            h, contact_offset, slop, bounce_thresh,
+            float(pn[0]), float(pn[1]), float(pn[2]), float(spec.plane_d),
+            float(spec.plane_friction), float(spec.plane_restitution),
+            1 if spec.has_ground else 0, torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"sphere_world kernel launch failed: CUDA error {err}")
     _kernels.launches["sphere_world"] += LAUNCHES_PER_SOLVE

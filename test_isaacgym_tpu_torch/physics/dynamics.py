@@ -209,6 +209,7 @@ def forward_dynamics(
     com=None,
     inertia=None,
     f_ext=None,
+    base_wrench=None,
     return_op=False,
 ):
     """Solve (M + h*diag(d_eff)) qdd = tau - C - g + ext.
@@ -217,6 +218,8 @@ def forward_dynamics(
     tau: (..., nv) generalized applied force (base rows zero for floating).
     d_eff: (..., nv) implicit diagonal damping (kd + h*kp + joint damping + armature/h).
     f_ext: (..., Ls, 6) spatial external force per link about the root origin.
+    base_wrench: optional (..., 6) [torque; force] world wrench on the base
+    about the root, added to a floating base's rows (ignored for a fixed one).
     Returns (qdd (..., nv), M), and the operator A = M + h*diag(d_eff) too
     when return_op.
     """
@@ -228,6 +231,10 @@ def forward_dynamics(
     M = crba(topo, S, m, com_rel, ic_w)
     C = rnea_bias(topo, S, m, com_rel, ic_w, vel_sp, dof_vel, gravity, f_ext)
     rhs = tau - C
+    if base_wrench is not None and not topo.fixed_base:
+        # the base rows are [linear; angular], the wrench [torque; force]
+        rhs = torch.cat([rhs[..., 0:3] + base_wrench[..., 3:6],
+                         rhs[..., 3:6] + base_wrench[..., 0:3], rhs[..., 6:]], dim=-1)
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
     A = M + h * eye * d_eff[..., None, :]
     # batched SPD solve — unrolled Cholesky (utils/linalg.py)

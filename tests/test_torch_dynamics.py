@@ -92,3 +92,28 @@ def test_mass_matrix_is_spd(name, fixed):
     M = td.mass_matrix(ttopo, pos, quat).double().numpy()
     np.testing.assert_allclose(M, np.swapaxes(M, -1, -2), atol=1e-5 * max(np.abs(M).max(), 1))
     assert np.linalg.eigvalsh(M).min() > 0
+
+
+@pytest.mark.parametrize("name,fixed", CASES)
+def test_forward_dynamics_base_wrench_matches_jax(name, fixed):
+    """A world [torque; force] wrench on the base, about the root: added to
+    a floating base's rows, ignored for a fixed one (JAX dynamics.py:372,
+    :392-394)."""
+    jtopo, ttopo = topo_of(JAX, name, fixed), topo_of(PORT, name, fixed)
+    links, qd, extra = _inputs(jtopo, seed=5 + len(name) + 7 * fixed)
+    wrench = np.random.RandomState(9).normal(size=(qd.shape[0], 6)).astype(np.float32) * 5
+
+    def run(dyn, topo, conv, w):
+        pos, quat, lin, ang = (conv(x) for x in links)
+        body = {k: conv(extra[k]) for k in ("mass", "com", "inertia")}
+        return dyn.forward_dynamics(
+            topo, pos, quat, lin, ang, conv(qd), conv(extra["tau"]), 1 / 120,
+            conv(extra["d_eff"]), conv(G), f_ext=conv(extra["f_ext"]),
+            base_wrench=None if w is None else conv(w), **body,
+        )[0]
+
+    want = np.asarray(run(jd, jtopo, jnp.asarray, wrench))
+    got = run(td, ttopo, torch.as_tensor, wrench).numpy()
+    close(got, want, f"qdd with a base wrench ({name}, fixed={fixed})")
+    free = run(td, ttopo, torch.as_tensor, None).numpy()
+    assert np.array_equal(got, free) == fixed  # a floating base feels it

@@ -271,3 +271,28 @@ elif __name__ == "__main__":
           f"{grip:.6f}, lift share {lift:.6f} (the first 64 envs: {grip64:.6f}, "
           f"{lift64:.6f}); lowest cube bottom at the end {end.min():.6f} m (env "
           f"{end.argmin()}), over the run {deepest:.6f} m")
+
+
+def test_rollout_is_the_jax_method():
+    """FrankaCubeEnv.rollout(num_steps, state=None) has the JAX env's name,
+    signature and stacked outputs (rollout_fn stays as its alias), and
+    step_fn takes the JAX scan's trailing argument. The JAX side is its
+    step_fn loop, the body its rollout scans (the scan compiled whole takes
+    about a minute on the CPU)."""
+    import inspect
+
+    for name in ("rollout", "step_fn"):
+        assert (list(inspect.signature(getattr(tfc.FrankaCubeEnv, name)).parameters)
+                == list(inspect.signature(getattr(jfc.FrankaCubeEnv, name)).parameters)), name
+    want, want_gripped, want_z, _ = _jax("osc")
+    env = tfc.FrankaCubeEnv(num_envs=N_ENVS, controller="osc", device="cpu")
+    st, (gripped, box_z) = env.rollout(EVERY)
+    assert gripped.shape == box_z.shape == (EVERY, N_ENVS)
+    np.testing.assert_array_equal(gripped.numpy(), want_gripped[:EVERY])
+    _check(box_z.numpy(), want_z[:EVERY], "box z")
+    _check(st.sim.root_pos[:, env.box_slot].numpy(), want["box_pos"][1], "box_pos at step 10")
+    _check(st.sim.dof_pos.numpy(), want["dof_pos"][1], "dof_pos at step 10")
+    alias = env.rollout_fn(EVERY)(env.init_state)
+    assert torch.equal(alias[0].sim.dof_pos, st.sim.dof_pos)
+    one, scanned = env.step_fn(env.init_state), env.step_fn(env.init_state, None)
+    assert torch.equal(one[0].sim.dof_pos, scanned[0].sim.dof_pos)

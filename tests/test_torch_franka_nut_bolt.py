@@ -285,3 +285,17 @@ def main():
 
 if __name__ == "__main__":
     main()
+
+
+def test_step_fn_takes_the_scan_argument():
+    """step_fn(state, _=None): the JAX env's trailing scan argument
+    (envs/franka_nut_bolt.py:286); one step so is the JAX env's first."""
+    import inspect
+
+    assert (list(inspect.signature(tfnb.FrankaNutBoltEnv.step_fn).parameters)
+            == list(inspect.signature(jfnb.FrankaNutBoltEnv.step_fn).parameters))
+    (want, want_fsm), _, env = _runs("bolt")
+    st, (fsm, _) = env.step_fn(env.init_state, None)
+    np.testing.assert_array_equal(fsm.numpy(), want_fsm[0])
+    close(st.sim.dof_pos.numpy(), want["dof_pos"][1], "dof_pos after one step", tol=ATOL)
+    close(st.sim.root_pos[:, env.nut_slot].numpy(), want["nut_pos"][1], "nut_pos", tol=ATOL)

@@ -42,9 +42,9 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_import_walk_reaches_the_sdf_modules():
-    """The walk above imports the SDF, soft-body, RL-env and renderer slices
-    and the gymapi facade with its compat modules too: their modules are in
-    the package tree."""
+    """The walk above imports the SDF, soft-body, RL-env and renderer slices,
+    the gymapi facade with its compat modules, and the env-axis sharding
+    too: their modules are in the package tree."""
     import pkgutil
 
     import test_isaacgym_tpu_torch as pkg
@@ -54,7 +54,7 @@ def test_import_walk_reaches_the_sdf_modules():
                 "physics.soft", "envs.soft_body", "assets.mjcf", "assets.vhacd", "randomize",
                 "envs.rl_env", "render.raster", "render.meshtools", "render.camera",
                 "gymapi", "gymapi.facade", "gymapi.mathtypes", "gymtorch", "gymutil",
-                "torch_utils", "envs.gym_scenes"):
+                "torch_utils", "envs.gym_scenes", "parallel", "parallel.mesh"):
         assert f"test_isaacgym_tpu_torch.{mod}" in names, mod
 
 

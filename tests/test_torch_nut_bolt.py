@@ -291,3 +291,18 @@ def main():
 
 if __name__ == "__main__":
     main()
+
+
+def test_rollout_fn_is_the_jax_method(envs):
+    """NutBoltEnv.rollout_fn(num_steps) -> (state -> state) has the JAX
+    env's name, signature and steps; rollout stays as its alias."""
+    import inspect
+
+    assert (list(inspect.signature(tnb.NutBoltEnv.rollout_fn).parameters)
+            == list(inspect.signature(jnb.NutBoltEnv.rollout_fn).parameters))
+    jenv, env = envs
+    with rolled_scan():
+        js = jax.jit(jenv.rollout_fn(10))(jenv.sim.state)
+    s = env.rollout_fn(10)(env.sim.state)
+    _state_close(s, js, "nut_bolt rollout_fn(10)", NUT_FIELDS)
+    assert torch.equal(env.rollout(10).root_pos, s.root_pos)

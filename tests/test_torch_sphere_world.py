@@ -310,3 +310,25 @@ def test_kernel_refuses_scratch_larger_than_the_card():
     with pytest.raises(ValueError, match="bytes of scratch"):
         tsw.solve(huge, *args, 1 / 60, 9, 0.01, 0.0025, 0.2)
     assert _kernels.launches["sphere_world"] == before
+
+
+@pytest.mark.cuda
+def test_kernel_launches_on_its_tensors_card():
+    """With card 0 current, a solve of tensors on the last card launches on
+    that card (the library launches on the current device, so the wrapper
+    makes the tensors' device current) and matches the plain version."""
+    _needs_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    args = [torch.as_tensor(x, device=last) for x in _random_args(3, N=2, F=96)]
+    spec = _spec(tsw, 96)
+    before = _kernels.launches["sphere_world"]
+    got = tsw.solve(spec.to(last), *args, 1 / 120, 8, 0.01, 0.0025, 0.2)
+    assert _kernels.launches["sphere_world"] == before + tsw.LAUNCHES_PER_SOLVE
+    want = tsw._torch_solve(spec, *args, 1 / 120, 8, 0.01, 0.0025, 0.2)
+    torch.cuda.synchronize(last)
+    assert torch.cuda.current_device() == 0
+    assert all(g.device == last for g in got)
+    _assert_close([w.cpu().numpy() for w in want], [g.cpu().numpy() for g in got])

@@ -206,3 +206,19 @@ def test_default_device_is_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises((AssertionError, RuntimeError)):
         UavCarEnv(num_envs=1)
+
+
+def test_step_fn_takes_the_scan_argument():
+    """step_fn(state, _=None): the JAX env's trailing scan argument
+    (envs/uav_car.py:108), with the JAX env's outputs."""
+    import inspect
+
+    assert (list(inspect.signature(UavCarEnv.step_fn).parameters)
+            == list(inspect.signature(JaxEnv.step_fn).parameters))
+    jenv = _jax_env(GOLDEN_ENVS)
+    env = UavCarEnv(num_envs=GOLDEN_ENVS, device="cpu")
+    want_state, (want_pix, want_rpy) = jenv.step_fn(jenv.init_state, None)
+    got_state, (got_pix, got_rpy) = env.step_fn(env.init_state, None)
+    for name, g, w in (("pixel", got_pix, want_pix), ("rpy", got_rpy, want_rpy),
+                       ("root_pos", got_state.sim.root_pos, want_state.sim.root_pos)):
+        close(g.numpy(), np.asarray(w), name, tol=ATOL)

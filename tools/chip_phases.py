@@ -22,6 +22,15 @@ takes the kernel module (box_phase, pile_phase hull, ...):
     gym_balls      gym_balls_phase: the 1080 balls through the gymapi facade
     gym_franka_osc gym_franka_osc_phase: examples/franka_osc.py's loop, 4096 envs
     gym_interop    gym_interop_phase: examples/interop_torch.py, 1024 cameras
+    sharded        sharded_checks on a rank a visible card (NCCL): the full
+                   Franka OSC step at 1024 envs a rank for 50 steps through
+                   rollout_with_obs against the native rollout of all the
+                   envs and one rank alone, and one world of 1080 balls a
+                   rank against the unsharded run
+
+`sharded` spawns this script once a card as `ROOT sharded_rank`, with
+RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE and MASTER_ADDR/MASTER_PORT
+set; a rank that fails or hangs past RANK_TIMEOUT fails the phase.
 
 The kernels are built from ROOT's sources first. Each phase prints what it
 prints in chip_smoke.py (ms/step, rates, busy share, ops a step, its
@@ -32,6 +41,37 @@ import os
 import subprocess
 import sys
 import time
+
+SHARDED_STEPS, SHARDED_WORLDS = 50, 1  # a rank's steps and ball worlds
+RANK_TIMEOUT = 600  # seconds the ranks of `sharded` may take in all
+
+
+def spawn_ranks(root, world):
+    """Run `ROOT sharded_rank` in `world` processes, a card each; raise
+    unless every rank exits 0 within RANK_TIMEOUT."""
+    import chip_smoke as cs
+
+    port = cs.free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-u", os.path.abspath(__file__), root, "sharded_rank"], env=env))
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"sharded: a rank ran past {RANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise SystemExit(f"sharded: ranks exited {codes}")
 
 
 def main(root, phases):
@@ -85,6 +125,20 @@ def main(root, phases):
             cs.gym_franka_osc_phase(_kernels)
         elif name == "gym_interop":
             cs.gym_interop_phase(_kernels)
+        elif name == "sharded":
+            world = torch.cuda.device_count()
+            cs.log(f"sharded: {world} ranks, one a card")
+            spawn_ranks(root, world)
+        elif name == "sharded_rank":
+            import torch.distributed as dist
+
+            from test_isaacgym_tpu_torch.parallel import mesh as pm
+
+            pm.init_distributed()
+            try:
+                cs.sharded_checks(_kernels, steps=SHARDED_STEPS, worlds_per_rank=SHARDED_WORLDS)
+            finally:
+                dist.destroy_process_group()
         else:
             raise SystemExit(f"unknown phase {name!r}")
         cs.log(f"phase {name}: {time.perf_counter() - t:.1f} s")
