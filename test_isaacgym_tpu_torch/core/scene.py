@@ -44,6 +44,7 @@ from ..assets.types import (
     _quat_mul_np,
     _quat_to_mat_np,
 )
+from ..utils.trace import stage
 from .config import PlaneParams, SimParams
 
 
@@ -351,20 +352,21 @@ class SceneBuilder:
         The grid tiles the two HORIZONTAL axes: (x, y) under UP_AXIS_Z,
         (x, z) under UP_AXIS_Y — the up_axis consumption the reference's
         test_graphics_up.py:42-43 relies on."""
-        i = len(self.envs)
-        lower = np.asarray(lower, dtype=np.float64)
-        upper = np.asarray(upper, dtype=np.float64)
-        ext = upper - lower
-        row, col = divmod(i, max(per_row, 1))
-        from .config import UP_AXIS_Y
+        with stage("setup.build"):
+            i = len(self.envs)
+            lower = np.asarray(lower, dtype=np.float64)
+            upper = np.asarray(upper, dtype=np.float64)
+            ext = upper - lower
+            row, col = divmod(i, max(per_row, 1))
+            from .config import UP_AXIS_Y
 
-        if self.sim_params.up_axis == UP_AXIS_Y:
-            origin = np.array([col * ext[0], 0.0, row * ext[2]])
-        else:
-            origin = np.array([col * ext[0], row * ext[1], 0.0])
-        self.envs.append([])
-        self.env_origins.append(origin)
-        return i
+            if self.sim_params.up_axis == UP_AXIS_Y:
+                origin = np.array([col * ext[0], 0.0, row * ext[2]])
+            else:
+                origin = np.array([col * ext[0], row * ext[1], 0.0])
+            self.envs.append([])
+            self.env_origins.append(origin)
+            return i
 
     def create_actor(
         self,
@@ -377,19 +379,20 @@ class SceneBuilder:
         filter: int = 0,
         seg_id: int = 0,
     ) -> int:
-        actors = self.envs[env_idx]
-        actors.append(
-            _ProtoActor(
-                asset,
-                np.asarray(pos, dtype=np.float64),
-                np.asarray(quat, dtype=np.float64),
-                name or f"actor{len(actors)}",
-                group,
-                filter,
-                seg_id,
+        with stage("setup.build"):
+            actors = self.envs[env_idx]
+            actors.append(
+                _ProtoActor(
+                    asset,
+                    np.asarray(pos, dtype=np.float64),
+                    np.asarray(quat, dtype=np.float64),
+                    name or f"actor{len(actors)}",
+                    group,
+                    filter,
+                    seg_id,
+                )
             )
-        )
-        return len(actors) - 1
+            return len(actors) - 1
 
     def add_heightfield(
         self,
@@ -482,6 +485,10 @@ class SceneBuilder:
         """Compile the build into (Scene, SimState, PhysParams). The scene's
         tables stay numpy on the host; state and params are torch tensors on
         `device`."""
+        with stage("setup.finalize"):
+            return self._finalize(device)
+
+    def _finalize(self, device):
         from ..assets.types import DOF_PROPS_DTYPE
         from .state import PhysParams, SimState, from_numpy
 

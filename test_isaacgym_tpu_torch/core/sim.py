@@ -12,6 +12,7 @@ import torch
 from ..physics import dynamics
 from ..physics.kinematics import body_jacobian, fk, jacobian as link_jacobian
 from ..physics.step import Stepper
+from ..utils.trace import stage
 from .scene import Scene
 from .state import PhysParams, SimState, zero_actions
 
@@ -23,42 +24,43 @@ def _to(value, device):
 
 class Simulator:
     def __init__(self, scene: Scene, state: SimState, params: PhysParams, device="cuda"):
-        self.device = torch.device(device)
-        self.scene = scene
-        self.stepper = Stepper(scene, self.device)
-        self.env_origins = torch.as_tensor(
-            scene.env_origins, dtype=torch.float32, device=self.device
-        )
-        self.params = _to(params, self.device)
-        state = _to(state, self.device)
-        # size the persistent warm-start impulse rows to the contact table
-        # (opt-in: physx.warm_start_contacts)
-        C = self.stepper.contact.num_contacts
-        if C and scene.sim_params.physx.warm_start_contacts:
-            n = state.root_pos.shape[0]
-            state = state._replace(
-                warm_n=torch.zeros((n, C), dtype=torch.float32, device=self.device),
-                warm_t=torch.zeros((n, C, 3), dtype=torch.float32, device=self.device),
+        with stage("setup.finalize"):
+            self.device = torch.device(device)
+            self.scene = scene
+            self.stepper = Stepper(scene, self.device)
+            self.env_origins = torch.as_tensor(
+                scene.env_origins, dtype=torch.float32, device=self.device
             )
-        self.state = self.stepper.refresh_body_state(state, self.params)
-        self.initial_state = self.state
-        self.actions = zero_actions(
-            scene.num_envs,
-            scene.num_dofs_per_env,
-            scene.num_bodies_per_env,
-            num_attractors=len(scene.attractors),
-            device=self.device,
-        )
-        if scene.attractors:
-            # every attractor on, aimed at its initial target
-            ai = scene.attractor_init
-            self.actions = self.actions._replace(
-                attractor_target_pos=self._tensor(ai["target_pos"]),
-                attractor_target_quat=self._tensor(ai["target_quat"]),
-                attractor_enabled=torch.ones(
-                    ai["stiffness"].shape, dtype=torch.bool, device=self.device
-                ),
+            self.params = _to(params, self.device)
+            state = _to(state, self.device)
+            # size the persistent warm-start impulse rows to the contact table
+            # (opt-in: physx.warm_start_contacts)
+            C = self.stepper.contact.num_contacts
+            if C and scene.sim_params.physx.warm_start_contacts:
+                n = state.root_pos.shape[0]
+                state = state._replace(
+                    warm_n=torch.zeros((n, C), dtype=torch.float32, device=self.device),
+                    warm_t=torch.zeros((n, C, 3), dtype=torch.float32, device=self.device),
+                )
+            self.state = self.stepper.refresh_body_state(state, self.params)
+            self.initial_state = self.state
+            self.actions = zero_actions(
+                scene.num_envs,
+                scene.num_dofs_per_env,
+                scene.num_bodies_per_env,
+                num_attractors=len(scene.attractors),
+                device=self.device,
             )
+            if scene.attractors:
+                # every attractor on, aimed at its initial target
+                ai = scene.attractor_init
+                self.actions = self.actions._replace(
+                    attractor_target_pos=self._tensor(ai["target_pos"]),
+                    attractor_target_quat=self._tensor(ai["target_quat"]),
+                    attractor_enabled=torch.ones(
+                        ai["stiffness"].shape, dtype=torch.bool, device=self.device
+                    ),
+                )
 
     # -- stepping -----------------------------------------------------------
     def step(self):

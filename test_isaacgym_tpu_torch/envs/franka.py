@@ -26,6 +26,7 @@ from ..core.scene import SceneBuilder
 from ..core.sim import Simulator
 from ..core.state import SimState
 from ..utils.linalg import spd_solve
+from ..utils.trace import span
 
 STANDIN_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -105,40 +106,43 @@ class FrankaOscEnv:
         step on a shard of the envs reads its shard's targets (default: the
         env's full-width ones); `params` feeds the runtime mass matrix's body
         params."""
-        init_hand_pos, init_hand_quat, origins = (
-            refs if refs is not None
-            else (self.init_hand_pos, self.init_hand_quat, self.origins)
-        )
-        j_eef = self._hand_jac_fn(state)[:, :, :7]  # (N, 6, 7)
-        mm = self._mm_fn(state, params)  # (N, 9, 9)
-        mm77 = mm[:, :7, :7]
+        with span("control.osc"):
+            init_hand_pos, init_hand_quat, origins = (
+                refs if refs is not None
+                else (self.init_hand_pos, self.init_hand_quat, self.origins)
+            )
+            with span("control.osc.jacobian"):
+                j_eef = self._hand_jac_fn(state)[:, :, :7]  # (N, 6, 7)
+            with span("control.osc.mass_matrix"):
+                mm = self._mm_fn(state, params)  # (N, 9, 9)
+            mm77 = mm[:, :7, :7]
 
-        hand_pos = state.body_pos[:, self.hand_body]
-        hand_quat = state.body_quat[:, self.hand_body]
+            hand_pos = state.body_pos[:, self.hand_body]
+            hand_quat = state.body_quat[:, self.hand_body]
 
-        t = itr.to(torch.float32)
-        pos_des = torch.stack(
-            [
-                init_hand_pos[:, 0] - 0.1,
-                origins[:, 1] + torch.sin(t / 50.0) * 0.2,
-                init_hand_pos[:, 2] + torch.cos(t / 50.0) * 0.2,
-            ],
-            dim=-1,
-        )
-        orn_err = orientation_error(init_hand_quat, hand_quat)
-        pos_err = self.kp * (pos_des - hand_pos)
-        dpose = torch.cat([pos_err, orn_err], dim=-1)
+            t = itr.to(torch.float32)
+            pos_des = torch.stack(
+                [
+                    init_hand_pos[:, 0] - 0.1,
+                    origins[:, 1] + torch.sin(t / 50.0) * 0.2,
+                    init_hand_pos[:, 2] + torch.cos(t / 50.0) * 0.2,
+                ],
+                dim=-1,
+            )
+            orn_err = orientation_error(init_hand_quat, hand_quat)
+            pos_err = self.kp * (pos_des - hand_pos)
+            dpose = torch.cat([pos_err, orn_err], dim=-1)
 
-        jt = j_eef.transpose(-1, -2)
-        m_eef_inv = j_eef @ spd_solve(mm77, jt)  # (N, 6, 6)
-        dof_vel = state.dof_vel[:, :7]
-        u = (
-            jt @ spd_solve(m_eef_inv, self.kp * dpose)[..., None]
-            - self.kv * (mm77 @ dof_vel[..., None])
-        )[..., 0]
-        effort = torch.cat([u, torch.zeros_like(u[:, :2])], dim=-1)
-        pos_target = torch.zeros_like(effort) + self._default_dof_pos
-        return effort, pos_target
+            jt = j_eef.transpose(-1, -2)
+            m_eef_inv = j_eef @ spd_solve(mm77, jt)  # (N, 6, 6)
+            dof_vel = state.dof_vel[:, :7]
+            u = (
+                jt @ spd_solve(m_eef_inv, self.kp * dpose)[..., None]
+                - self.kv * (mm77 @ dof_vel[..., None])
+            )[..., 0]
+            effort = torch.cat([u, torch.zeros_like(u[:, :2])], dim=-1)
+            pos_target = torch.zeros_like(effort) + self._default_dof_pos
+            return effort, pos_target
 
     def _step_impl(self, state, actions, params, itr, refs=None):
         effort, pos_target = self._control(state, itr, refs, params)

@@ -68,6 +68,7 @@ from ..math.quat import cross, quat_conjugate, quat_mul, quat_rotate, quat_to_ma
 from ..math.spatial import skew
 from ..utils import debug as _debug
 from ..utils.linalg import spd_inv
+from ..utils.trace import span
 
 _BOX_CORNERS = np.array(
     [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
@@ -894,14 +895,15 @@ class ContactSolver:
         if not self.enabled:
             return free_v, free_w, list(art_qd), cf, None
         if self.sphere_world is not None and free_m is not None:
-            args = self._sphere_world_inputs(
-                body_pos, free_v, free_w, free_m, free_I_w, params, h
-            )
-            _, fidx, _, bidx = self._sphere_world_on(body_pos.device)
-            v1, w1, cf_s = _sw.solve(*args)
-            free_v = free_v.index_copy(1, fidx, v1)
-            free_w = free_w.index_copy(1, fidx, w1)
-            cf = cf.index_add(1, bidx, cf_s)
+            with span("contact.sphere_world"):
+                args = self._sphere_world_inputs(
+                    body_pos, free_v, free_w, free_m, free_I_w, params, h
+                )
+                _, fidx, _, bidx = self._sphere_world_on(body_pos.device)
+                v1, w1, cf_s = _sw.solve(*args)
+                free_v = free_v.index_copy(1, fidx, v1)
+                free_w = free_w.index_copy(1, fidx, w1)
+                cf = cf.index_add(1, bidx, cf_s)
         if self.neighbor_world is not None and free_m is not None:
             free_v, free_w, cf = self._solve_neighbor_world(
                 body_pos, body_quat, free_v, free_w, free_m, free_I_w, params, h, cf

@@ -28,6 +28,7 @@ import torch
 from ..math import spatial
 from ..math.quat import cross as _cross, quat_rotate, quat_to_matrix
 from ..utils.linalg import spd_solve
+from ..utils.trace import span
 from .kinematics import ArtTopo, joint_world_frames
 
 
@@ -92,62 +93,63 @@ def crba(topo: ArtTopo, S, m, com_rel, ic_w):
     m/com_rel/ic_w: world inertia params per link; com_rel relative to O.
     Returns M (..., nv, nv), nv = [6+]D, base cols first for floating base.
     """
-    D = topo.num_dofs
-    mk = topo.masks
-    A = mk.dof_anc  # (L, D) static
+    with span("crba"):
+        D = topo.num_dofs
+        mk = topo.masks
+        A = mk.dof_anc  # (L, D) static
 
-    if D:
-        Sd = S[..., mk.dof_link, :]  # (..., D, 6)
-        # W[l, d] = I_l @ S_d  (spatial momentum of unit joint motion)
-        W = spatial.inertia_mul(
-            m[..., :, None],
-            com_rel[..., :, None, :],
-            ic_w[..., :, None, :, :],
-            Sd[..., None, :, :],
-        )  # (..., L, D, 6)
-        G = torch.einsum("...ak,...lbk->...lab", Sd, W)
-        Mjj = torch.einsum("la,lb,...lab->...ab", A, A, G)
-    else:
-        Mjj = torch.zeros(m.shape[:-1] + (0, 0), dtype=S.dtype, device=S.device)
+        if D:
+            Sd = S[..., mk.dof_link, :]  # (..., D, 6)
+            # W[l, d] = I_l @ S_d  (spatial momentum of unit joint motion)
+            W = spatial.inertia_mul(
+                m[..., :, None],
+                com_rel[..., :, None, :],
+                ic_w[..., :, None, :, :],
+                Sd[..., None, :, :],
+            )  # (..., L, D, 6)
+            G = torch.einsum("...ak,...lbk->...lab", Sd, W)
+            Mjj = torch.einsum("la,lb,...lab->...ab", A, A, G)
+        else:
+            Mjj = torch.zeros(m.shape[:-1] + (0, 0), dtype=S.dtype, device=S.device)
 
-    if topo.fixed_base:
-        return Mjj
+        if topo.fixed_base:
+            return Mjj
 
-    # base block: total spatial inertia about O (explicit 6x6 in the
-    # [translation rows; rotation rows] layout used by qdd[0:3]=lin,[3:6]=ang)
-    m0 = torch.sum(m, dim=-1)
-    msafe = m0.clamp_min(1e-12)
-    c0 = torch.sum(m[..., None] * com_rel, dim=-2) / msafe[..., None]
-    d = com_rel - c0[..., None, :]
-    d2 = torch.sum(d * d, dim=-1)
-    eye = torch.eye(3, dtype=S.dtype, device=S.device)
-    outer = d[..., :, None] * d[..., None, :]
-    i0 = torch.sum(
-        ic_w + m[..., None, None] * (d2[..., None, None] * eye - outer), dim=-3
-    )
-    cx = spatial.skew(c0)
-    tt = m0[..., None, None] * eye
-    tr = -(m0[..., None, None] * cx)
-    ccT = torch.einsum("...ij,...kj->...ik", cx, cx)
-    rr = i0 + m0[..., None, None] * ccT
+        # base block: total spatial inertia about O (explicit 6x6 in the
+        # [translation rows; rotation rows] layout used by qdd[0:3]=lin,[3:6]=ang)
+        m0 = torch.sum(m, dim=-1)
+        msafe = m0.clamp_min(1e-12)
+        c0 = torch.sum(m[..., None] * com_rel, dim=-2) / msafe[..., None]
+        d = com_rel - c0[..., None, :]
+        d2 = torch.sum(d * d, dim=-1)
+        eye = torch.eye(3, dtype=S.dtype, device=S.device)
+        outer = d[..., :, None] * d[..., None, :]
+        i0 = torch.sum(
+            ic_w + m[..., None, None] * (d2[..., None, None] * eye - outer), dim=-3
+        )
+        cx = spatial.skew(c0)
+        tt = m0[..., None, None] * eye
+        tr = -(m0[..., None, None] * cx)
+        ccT = torch.einsum("...ij,...kj->...ik", cx, cx)
+        rr = i0 + m0[..., None, None] * ccT
 
-    if D:
-        # base-joint coupling: F_d = sum_l anc(l,d) I_l S_d
-        Fd = torch.einsum("ld,...ldk->...dk", A, W)  # (..., D, 6)
-        jt_f = Fd[..., 3:6].transpose(-1, -2)  # (..., 3, D)
-        jt_n = Fd[..., 0:3].transpose(-1, -2)
-    else:
-        jt_f = torch.zeros(tt.shape[:-1] + (0,), dtype=S.dtype, device=S.device)
-        jt_n = torch.zeros(tt.shape[:-1] + (0,), dtype=S.dtype, device=S.device)
+        if D:
+            # base-joint coupling: F_d = sum_l anc(l,d) I_l S_d
+            Fd = torch.einsum("ld,...ldk->...dk", A, W)  # (..., D, 6)
+            jt_f = Fd[..., 3:6].transpose(-1, -2)  # (..., 3, D)
+            jt_n = Fd[..., 0:3].transpose(-1, -2)
+        else:
+            jt_f = torch.zeros(tt.shape[:-1] + (0,), dtype=S.dtype, device=S.device)
+            jt_n = torch.zeros(tt.shape[:-1] + (0,), dtype=S.dtype, device=S.device)
 
-    top = torch.cat([tt, tr, jt_f], dim=-1)  # (..., 3, nv)
-    mid = torch.cat([tr.transpose(-1, -2), rr, jt_n], dim=-1)
-    if D:
-        bot = torch.cat(
-            [jt_f.transpose(-1, -2), jt_n.transpose(-1, -2), Mjj], dim=-1
-        )  # (..., D, nv)
-        return torch.cat([top, mid, bot], dim=-2)
-    return torch.cat([top, mid], dim=-2)
+        top = torch.cat([tt, tr, jt_f], dim=-1)  # (..., 3, nv)
+        mid = torch.cat([tr.transpose(-1, -2), rr, jt_n], dim=-1)
+        if D:
+            bot = torch.cat(
+                [jt_f.transpose(-1, -2), jt_n.transpose(-1, -2), Mjj], dim=-1
+            )  # (..., D, nv)
+            return torch.cat([top, mid, bot], dim=-2)
+        return torch.cat([top, mid], dim=-2)
 
 
 def rnea_bias(topo: ArtTopo, S, m, com_rel, ic_w, vel_sp, qd, gravity, f_ext=None):
@@ -158,34 +160,35 @@ def rnea_bias(topo: ArtTopo, S, m, com_rel, ic_w, vel_sp, qd, gravity, f_ext=Non
     force on each link about O (world axes), entering with a minus sign.
     Returns (..., nv).
     """
-    D = topo.num_dofs
-    mk = topo.masks
+    with span("rnea"):
+        D = topo.num_dofs
+        mk = topo.masks
 
-    # bias acceleration (qdd = 0): a_i = -g + sum_{j in anc(i)} v_j x (S_j qd_j)
-    g6 = torch.cat([torch.zeros_like(gravity), -gravity], dim=-1)
-    if D:
-        qd_l = qd[..., mk.link_qd] * mk.has_dof  # (..., L)
-        c = spatial.cross_motion(vel_sp, S * qd_l[..., None])  # (..., L, 6)
-        a = g6 + torch.einsum("ij,...jk->...ik", mk.anc, c)
-    else:
-        a = g6.expand(vel_sp.shape)
+        # bias acceleration (qdd = 0): a_i = -g + sum_{j in anc(i)} v_j x (S_j qd_j)
+        g6 = torch.cat([torch.zeros_like(gravity), -gravity], dim=-1)
+        if D:
+            qd_l = qd[..., mk.link_qd] * mk.has_dof  # (..., L)
+            c = spatial.cross_motion(vel_sp, S * qd_l[..., None])  # (..., L, 6)
+            a = g6 + torch.einsum("ij,...jk->...ik", mk.anc, c)
+        else:
+            a = g6.expand(vel_sp.shape)
 
-    Iv = spatial.inertia_mul(m, com_rel, ic_w, vel_sp)
-    f = spatial.inertia_mul(m, com_rel, ic_w, a) + spatial.cross_force(vel_sp, Iv)
-    if f_ext is not None:
-        f = f - f_ext
+        Iv = spatial.inertia_mul(m, com_rel, ic_w, vel_sp)
+        f = spatial.inertia_mul(m, com_rel, ic_w, a) + spatial.cross_force(vel_sp, Iv)
+        if f_ext is not None:
+            f = f - f_ext
 
-    parts = []
-    if not topo.fixed_base:
-        f_tot = torch.sum(f, dim=-2)
-        # base rows: translation rows pair with f, rotation rows with n
-        parts.append(f_tot[..., 3:6])
-        parts.append(f_tot[..., 0:3])
-    if D:
-        # C[d] = sum_{i desc of d} S_d . f_i
-        Sd = S[..., mk.dof_link, :]
-        parts.append(torch.einsum("ld,...dk,...lk->...d", mk.dof_anc, Sd, f))
-    return torch.cat(parts, dim=-1)
+        parts = []
+        if not topo.fixed_base:
+            f_tot = torch.sum(f, dim=-2)
+            # base rows: translation rows pair with f, rotation rows with n
+            parts.append(f_tot[..., 3:6])
+            parts.append(f_tot[..., 0:3])
+        if D:
+            # C[d] = sum_{i desc of d} S_d . f_i
+            Sd = S[..., mk.dof_link, :]
+            parts.append(torch.einsum("ld,...dk,...lk->...d", mk.dof_anc, Sd, f))
+        return torch.cat(parts, dim=-1)
 
 
 def spatial_velocities(topo: ArtTopo, pos, lin, ang, origin):

@@ -17,6 +17,7 @@ import torch
 
 from ..core.scene import JT_PRISMATIC, JT_REVOLUTE, JT_ROOT, ArtGroup
 from ..math.quat import cross as _cross, quat_mul, quat_rotate
+from ..utils.trace import span
 
 
 class TopoMasks(NamedTuple):
@@ -134,65 +135,66 @@ def fk(
     Returns (pos, quat, linvel, angvel) each (..., Ls, ...): world link frames,
     linvel = velocity of the link-frame origin, angvel = world angular velocity.
     """
-    L = topo.num_links
-    pos, quat, lin, ang = [], [], [], []
-    for i in range(L):
-        if topo.jtype[i] == JT_ROOT:
-            pos.append(root_pos)
-            quat.append(root_quat)
-            lin.append(root_linvel)
-            ang.append(root_angvel)
-            continue
-        p = topo.parent[i]
-        # joint frame in world
-        jf_pos = pos[p] + quat_rotate(quat[p], topo.jp_pos[i])
-        jf_quat = quat_mul(quat[p], topo.jp_quat[i])
-        d = topo.dof_of_link[i]
-        jt = topo.jtype[i]
-        if jt == JT_REVOLUTE:
-            q_i = dof_pos[..., d]
-            qd_i = dof_vel[..., d]
-            half = 0.5 * q_i
-            s, c = torch.sin(half), torch.cos(half)
-            jq = torch.stack(
-                [topo.axis[i, 0] * s, topo.axis[i, 1] * s, topo.axis[i, 2] * s, c],
-                dim=-1,
-            )
-            post_quat = quat_mul(jf_quat, jq)
-            axis_w = quat_rotate(jf_quat, topo.axis[i])
-            body_quat = quat_mul(post_quat, topo.jc_quat[i])
-            body_pos = jf_pos + quat_rotate(post_quat, topo.jc_pos[i])
-            w = ang[p] + axis_w * qd_i[..., None]
-            v = (
-                lin[p]
-                + _cross(ang[p], jf_pos - pos[p])
-                + _cross(axis_w * qd_i[..., None], body_pos - jf_pos)
-            )
-        elif jt == JT_PRISMATIC:
-            q_i = dof_pos[..., d]
-            qd_i = dof_vel[..., d]
-            axis_w = quat_rotate(jf_quat, topo.axis[i])
-            body_quat = quat_mul(jf_quat, topo.jc_quat[i])
-            body_pos = (
-                jf_pos + axis_w * q_i[..., None] + quat_rotate(jf_quat, topo.jc_pos[i])
-            )
-            w = ang[p]
-            v = lin[p] + _cross(ang[p], body_pos - pos[p]) + axis_w * qd_i[..., None]
-        else:  # fixed
-            body_quat = quat_mul(jf_quat, topo.jc_quat[i])
-            body_pos = jf_pos + quat_rotate(jf_quat, topo.jc_pos[i])
-            w = ang[p]
-            v = lin[p] + _cross(ang[p], body_pos - pos[p])
-        pos.append(body_pos)
-        quat.append(body_quat)
-        lin.append(v)
-        ang.append(w)
-    return (
-        torch.stack(pos, dim=-2),
-        torch.stack(quat, dim=-2),
-        torch.stack(lin, dim=-2),
-        torch.stack(ang, dim=-2),
-    )
+    with span("fk"):
+        L = topo.num_links
+        pos, quat, lin, ang = [], [], [], []
+        for i in range(L):
+            if topo.jtype[i] == JT_ROOT:
+                pos.append(root_pos)
+                quat.append(root_quat)
+                lin.append(root_linvel)
+                ang.append(root_angvel)
+                continue
+            p = topo.parent[i]
+            # joint frame in world
+            jf_pos = pos[p] + quat_rotate(quat[p], topo.jp_pos[i])
+            jf_quat = quat_mul(quat[p], topo.jp_quat[i])
+            d = topo.dof_of_link[i]
+            jt = topo.jtype[i]
+            if jt == JT_REVOLUTE:
+                q_i = dof_pos[..., d]
+                qd_i = dof_vel[..., d]
+                half = 0.5 * q_i
+                s, c = torch.sin(half), torch.cos(half)
+                jq = torch.stack(
+                    [topo.axis[i, 0] * s, topo.axis[i, 1] * s, topo.axis[i, 2] * s, c],
+                    dim=-1,
+                )
+                post_quat = quat_mul(jf_quat, jq)
+                axis_w = quat_rotate(jf_quat, topo.axis[i])
+                body_quat = quat_mul(post_quat, topo.jc_quat[i])
+                body_pos = jf_pos + quat_rotate(post_quat, topo.jc_pos[i])
+                w = ang[p] + axis_w * qd_i[..., None]
+                v = (
+                    lin[p]
+                    + _cross(ang[p], jf_pos - pos[p])
+                    + _cross(axis_w * qd_i[..., None], body_pos - jf_pos)
+                )
+            elif jt == JT_PRISMATIC:
+                q_i = dof_pos[..., d]
+                qd_i = dof_vel[..., d]
+                axis_w = quat_rotate(jf_quat, topo.axis[i])
+                body_quat = quat_mul(jf_quat, topo.jc_quat[i])
+                body_pos = (
+                    jf_pos + axis_w * q_i[..., None] + quat_rotate(jf_quat, topo.jc_pos[i])
+                )
+                w = ang[p]
+                v = lin[p] + _cross(ang[p], body_pos - pos[p]) + axis_w * qd_i[..., None]
+            else:  # fixed
+                body_quat = quat_mul(jf_quat, topo.jc_quat[i])
+                body_pos = jf_pos + quat_rotate(jf_quat, topo.jc_pos[i])
+                w = ang[p]
+                v = lin[p] + _cross(ang[p], body_pos - pos[p])
+            pos.append(body_pos)
+            quat.append(body_quat)
+            lin.append(v)
+            ang.append(w)
+        return (
+            torch.stack(pos, dim=-2),
+            torch.stack(quat, dim=-2),
+            torch.stack(lin, dim=-2),
+            torch.stack(ang, dim=-2),
+        )
 
 
 def joint_world_frames(topo: ArtTopo, pos, quat):

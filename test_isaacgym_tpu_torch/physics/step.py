@@ -39,6 +39,7 @@ from ..math.quat import (
 from ..math.spatial import skew
 from ..utils import debug as _debug
 from ..utils.linalg import spd_inv, spd_solve
+from ..utils.trace import span
 from . import contacts as contacts_mod
 from . import dynamics
 from .kinematics import ArtTopo, body_jacobian, fk, jacobian as link_jacobian, topo_from_group
@@ -169,39 +170,40 @@ class Stepper:
 
     # ------------------------------------------------------------------
     def step(self, state: SimState, actions: Actions, params: PhysParams) -> SimState:
-        # body state is fresh at step entry (refresh_body_state runs at the
-        # end of every step and after every state write), so the first
-        # substep reuses it instead of re-running FK — with the final
-        # refresh, 2 link sweeps per step instead of substeps+1.
-        first = True
-        # CROSS-STEP warm starting: persistent per-row contact impulses ride
-        # in SimState (keyed by static contact row), so force chains (heavy
-        # stacks, pinch grasps) keep converging across steps instead of
-        # being rebuilt from zero; separated rows are masked to zero by the
-        # solver's `active` gate on re-entry. Within a step the impulses
-        # always carry from one substep to the next.
-        warm = (state.warm_n, state.warm_t) if state.warm_n is not None else None
-        for sub_i in range(self.substeps):
-            state, warm = self._substep(
-                state, actions, params, reuse_body_state=first, warm=warm
-            )
-            if self.debug:
-                _debug.check_finite(state, f"substep {sub_i}")
-            if self.soft is not None:
-                # one-way coupled FEM solve (physics/soft.py): soft verts see
-                # the body cache, which refreshes at step end, so the press
-                # lags the rigid substeps (as in the JAX package; invisible
-                # at 1/60)
-                sp, sv = self.soft.substep(
-                    state.soft_pos, state.soft_vel, state.body_pos, state.body_quat,
-                    params, self.h, params.gravity,
+        with span("sim.step"):
+            # body state is fresh at step entry (refresh_body_state runs at the
+            # end of every step and after every state write), so the first
+            # substep reuses it instead of re-running FK — with the final
+            # refresh, 2 link sweeps per step instead of substeps+1.
+            first = True
+            # CROSS-STEP warm starting: persistent per-row contact impulses ride
+            # in SimState (keyed by static contact row), so force chains (heavy
+            # stacks, pinch grasps) keep converging across steps instead of
+            # being rebuilt from zero; separated rows are masked to zero by the
+            # solver's `active` gate on re-entry. Within a step the impulses
+            # always carry from one substep to the next.
+            warm = (state.warm_n, state.warm_t) if state.warm_n is not None else None
+            for sub_i in range(self.substeps):
+                state, warm = self._substep(
+                    state, actions, params, reuse_body_state=first, warm=warm
                 )
-                state = state._replace(soft_pos=sp, soft_vel=sv)
-            first = False
-        state = self.refresh_body_state(state, params)
-        if warm is not None and state.warm_n is not None:
-            state = state._replace(warm_n=warm[0], warm_t=warm[1])
-        return state._replace(time=state.time + self.dt, steps=state.steps + 1)
+                if self.debug:
+                    _debug.check_finite(state, f"substep {sub_i}")
+                if self.soft is not None:
+                    # one-way coupled FEM solve (physics/soft.py): soft verts see
+                    # the body cache, which refreshes at step end, so the press
+                    # lags the rigid substeps (as in the JAX package; invisible
+                    # at 1/60)
+                    sp, sv = self.soft.substep(
+                        state.soft_pos, state.soft_vel, state.body_pos, state.body_quat,
+                        params, self.h, params.gravity,
+                    )
+                    state = state._replace(soft_pos=sp, soft_vel=sv)
+                first = False
+            state = self.refresh_body_state(state, params)
+            if warm is not None and state.warm_n is not None:
+                state = state._replace(warm_n=warm[0], warm_t=warm[1])
+            return state._replace(time=state.time + self.dt, steps=state.steps + 1)
 
     def _link_state_from_bodies(self, gi: _GroupIndex, state: SimState):
         """Gather per-sim-link world state from the body cache (valid only
@@ -473,38 +475,42 @@ class Stepper:
         h = self.h
         warm_out = warm
         # ---------- phase A: articulated groups — velocities (pre-contact) ----------
-        group_data = self.group_velocities(state, actions, params, reuse_body_state)
+        with span("sim.phase_a"):
+            group_data = self.group_velocities(state, actions, params, reuse_body_state)
 
         # ---------- phase B: free bodies — velocities (pre-contact) ----------
-        fd = self.free_velocities(state, actions, params)
+        with span("sim.phase_b"):
+            fd = self.free_velocities(state, actions, params)
 
         # ---------- phase C: unified contact solve (free bodies + links) ----------
         if self.contact.enabled:
-            cur_bp, cur_bq, art_jac, art_Ainv = self.contact_inputs(state, group_data, fd)
-            fv, fw, qd_fulls, cf, warm_out = self.contact.solve(
-                cur_bp,
-                cur_bq,
-                (state.body_linvel, state.body_angvel),
-                fd["v"] if fd is not None else None,
-                fd["w"] if fd is not None else None,
-                fd["m"] if fd is not None else None,
-                fd["I_w"] if fd is not None else None,
-                fd["com_w"] if fd is not None else None,
-                [gd["qd_full"] for gd in group_data],
-                art_jac,
-                art_Ainv,
-                params,
-                h,
-                warm=warm,
-            )
-            state = state._replace(contact_force=cf)
-            for gd, qd_full in zip(group_data, qd_fulls):
-                gd["qd_full"] = qd_full
-            if fd is not None:
-                fd["v"], fd["w"] = fv, fw
+            with span("sim.phase_c"):
+                cur_bp, cur_bq, art_jac, art_Ainv = self.contact_inputs(state, group_data, fd)
+                fv, fw, qd_fulls, cf, warm_out = self.contact.solve(
+                    cur_bp,
+                    cur_bq,
+                    (state.body_linvel, state.body_angvel),
+                    fd["v"] if fd is not None else None,
+                    fd["w"] if fd is not None else None,
+                    fd["m"] if fd is not None else None,
+                    fd["I_w"] if fd is not None else None,
+                    fd["com_w"] if fd is not None else None,
+                    [gd["qd_full"] for gd in group_data],
+                    art_jac,
+                    art_Ainv,
+                    params,
+                    h,
+                    warm=warm,
+                )
+                state = state._replace(contact_force=cf)
+                for gd, qd_full in zip(group_data, qd_fulls):
+                    gd["qd_full"] = qd_full
+                if fd is not None:
+                    fd["v"], fd["w"] = fv, fw
 
         # ---------- phase D: limits + position integration ----------
-        return self.integrate(state, group_data, fd, params), warm_out
+        with span("sim.phase_d"):
+            return self.integrate(state, group_data, fd, params), warm_out
 
     def integrate(self, state: SimState, group_data, fd, params: PhysParams) -> SimState:
         """Phase D: joint limits and position integration of the groups'
@@ -566,37 +572,38 @@ class Stepper:
     def refresh_body_state(self, state: SimState, params: PhysParams) -> SimState:
         """Recompute the per-body world state cache from roots + dofs
         (the reference's refresh_rigid_body_state_tensor, now derived)."""
-        body_pos = state.body_pos
-        body_quat = state.body_quat
-        body_lin = state.body_linvel
-        body_ang = state.body_angvel
-        for gi in self.groups:
-            slots, didx = gi.slots, gi.dof_idx
-            pos, quat, lin, ang = fk(
-                gi.topo,
-                state.root_pos[:, slots],
-                state.root_quat[:, slots],
-                state.root_linvel[:, slots],
-                state.root_angvel[:, slots],
-                state.dof_pos[:, didx],
-                state.dof_vel[:, didx],
+        with span("sim.refresh"):
+            body_pos = state.body_pos
+            body_quat = state.body_quat
+            body_lin = state.body_linvel
+            body_ang = state.body_angvel
+            for gi in self.groups:
+                slots, didx = gi.slots, gi.dof_idx
+                pos, quat, lin, ang = fk(
+                    gi.topo,
+                    state.root_pos[:, slots],
+                    state.root_quat[:, slots],
+                    state.root_linvel[:, slots],
+                    state.root_angvel[:, slots],
+                    state.dof_pos[:, didx],
+                    state.dof_vel[:, didx],
+                )
+                bidx = gi.body_flat
+                body_pos = body_pos.index_copy(1, bidx, self._real(gi, pos))
+                body_quat = body_quat.index_copy(1, bidx, self._real(gi, quat))
+                body_lin = body_lin.index_copy(1, bidx, self._real(gi, lin))
+                body_ang = body_ang.index_copy(1, bidx, self._real(gi, ang))
+            for slots, body in self._groups:
+                body_pos = body_pos.index_copy(1, body, state.root_pos[:, slots])
+                body_quat = body_quat.index_copy(1, body, state.root_quat[:, slots])
+                body_lin = body_lin.index_copy(1, body, state.root_linvel[:, slots])
+                body_ang = body_ang.index_copy(1, body, state.root_angvel[:, slots])
+            return state._replace(
+                body_pos=body_pos,
+                body_quat=body_quat,
+                body_linvel=body_lin,
+                body_angvel=body_ang,
             )
-            bidx = gi.body_flat
-            body_pos = body_pos.index_copy(1, bidx, self._real(gi, pos))
-            body_quat = body_quat.index_copy(1, bidx, self._real(gi, quat))
-            body_lin = body_lin.index_copy(1, bidx, self._real(gi, lin))
-            body_ang = body_ang.index_copy(1, bidx, self._real(gi, ang))
-        for slots, body in self._groups:
-            body_pos = body_pos.index_copy(1, body, state.root_pos[:, slots])
-            body_quat = body_quat.index_copy(1, body, state.root_quat[:, slots])
-            body_lin = body_lin.index_copy(1, body, state.root_linvel[:, slots])
-            body_ang = body_ang.index_copy(1, body, state.root_angvel[:, slots])
-        return state._replace(
-            body_pos=body_pos,
-            body_quat=body_quat,
-            body_linvel=body_lin,
-            body_angvel=body_ang,
-        )
 
     # ------------------------------------------------------------------
     def rollout(self, state: SimState, actions: Actions, params: PhysParams, num_steps: int):

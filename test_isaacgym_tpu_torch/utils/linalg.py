@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from .trace import span
+
 _UNROLL_MAX = 24
 
 
@@ -43,6 +45,11 @@ def spd_solve(A, B):
     A: (..., n, n); B: (..., n) or (..., n, k). Unrolled Cholesky for
     n <= _UNROLL_MAX, else torch.linalg.solve.
     """
+    with span("chol"):
+        return _spd_solve(A, B)
+
+
+def _spd_solve(A, B):
     n = A.shape[-1]
     vec = B.dim() == A.dim() - 1
     if n > _UNROLL_MAX:
@@ -71,11 +78,12 @@ def spd_solve(A, B):
 
 def spd_inv(A):
     """Batched SPD inverse via the unrolled Cholesky solve against identity."""
-    n = A.shape[-1]
-    eye = torch.zeros_like(A) + torch.eye(n, dtype=A.dtype, device=A.device)
-    if n > _UNROLL_MAX:
-        return torch.linalg.solve(A, eye)
-    return spd_solve(A, eye)
+    with span("chol"):
+        n = A.shape[-1]
+        eye = torch.zeros_like(A) + torch.eye(n, dtype=A.dtype, device=A.device)
+        if n > _UNROLL_MAX:
+            return torch.linalg.solve(A, eye)
+        return _spd_solve(A, eye)
 
 
 # Historical name: every inverse in the simulator is of an SPD operator.
