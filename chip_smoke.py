@@ -10,18 +10,21 @@ spill out of shared memory), shows that two solves of the same inputs give
 the same bits, drives the 1080-ball sphere world (envs/balls.py, 36
 pyramids) through its entry points with the kernels' launch counts read
 around that run alone, profiles 20 of its steps, runs the 120-ball drop
-against tests/goldens/balls_drop.npz, then drives the flagship Franka OSC
+against tests/goldens/balls_drop.npz, then holds the forward-kinematics
+kernel (csrc/fk.cu) against its plain version at the Franka path's shape,
+one launch a call, two launches bitwise equal, its time by CUDA-graph replay
+beside its byte bound, then drives the flagship Franka OSC
 path (envs/franka.py, 4096 envs of the mesh-free Panda stand-in, plain
-PyTorch ops and no hand-written kernel: its counts are read around its own
-run and must stay 0), profiles 3 of its steps, checks an 8-env run against
+PyTorch ops and the fk kernel: its counts are read around its own run, 2 fk
+launches a step and no other), profiles 3 of its steps, checks an 8-env run against
 the stand-in golden, then drives the franka_cube pick path (envs/franka_cube.py,
 4096 envs of the stand-in with collision boxes on the hand and fingers, OSC,
-the contact table's narrowphase and two-way Jacobi solve: plain PyTorch, its
-sphere-world count must stay 0), runs one of its steps with host syncs made
+the contact table's narrowphase and two-way Jacobi solve: plain PyTorch and
+the fk kernel, its sphere-world count must stay 0), runs one of its steps with host syncs made
 errors, times its layers, profiles 3 of its steps, checks a 4-env run of
 each controller against franka_cube_standin.npz, reports its grip and lift
-shares beside the JAX env's; then the paths with no kernel of their own,
-each with its counts read around its run: 4096 attractor-driven Pandas
+shares beside the JAX env's; then the paths with no kernel of their own
+but fk, each with its counts read around its run: 4096 attractor-driven Pandas
 (examples/franka_attractor.py's moving target), the 4096-env UAV-car
 pursuit (and 16 envs against tests/goldens/uav_car.npz), 1080 boxes on the
 neighbor-list solve (sphere-world count 0), and 100 spheres beside 100
@@ -100,7 +103,9 @@ each held to the JAX package's CPU run of the same argv in
 examples_jax.json by tests/test_torch_examples_physics.py's rule, or
 stopping where the table states with every line before the stop the JAX
 run's, every sim on the card, graphics_camera's image written by its own
-run. It
+run. Every path's counted run is held to exact counts of each kernel: its
+sphere-world launches, and FK_PER_STEP fk launches a step (2 on the
+articulated paths with two substeps, 0 where there is no articulation). It
 prints:
   * the card's name and power limit (nvidia-smi);
   * per-phase numbers (build seconds, kernel and plain times, each launch's
@@ -141,6 +146,7 @@ PEAK_BYTES = 3.35e12
 OPS_CANDIDATE, OPS_PAIR_SETUP, OPS_PAIR_SWEEP, OPS_BODY_SWEEP = 12, 60, 100, 80
 
 SOLVE_TOL = 1e-5  # kernel vs plain, of the largest magnitude
+FK_GRAPH_CALLS = 20  # fk calls captured in the graph that times the fk kernel
 STEPS = 400  # end-to-end 1080-ball run
 PILE_STEPS = 120  # steps before capturing the piled F=1080 solve inputs
 PROFILE_STEPS = 20  # main-path steps under torch.profiler
@@ -339,8 +345,23 @@ EXAMPLES = (  # the longest first
 EXAMPLE_WORKERS, EXAMPLE_TIMEOUT = 4, 150
 # the device of every phase's envs ("cpu" only in a rehearsal of the phases on the CPU)
 DEV = "cuda"
-# sphere-world launches and ms/step of each main path's timed run, by path
+# fk kernel launches (csrc/fk.cu, one a call of physics/kinematics.fk) a step
+# (a frame) of each path's counted run, by path: phase A calls fk in every
+# substep but the first, which reuses the body cache, and the refresh once a
+# step, for each articulation group (2 substeps: 2 a step; soft_body's press
+# plate, 3 substeps: 3). Paths without an articulation launch none. A path's
+# count must be this times its steps (counted on the CPU, where _fk_torch was
+# wrapped to count as the kernel does).
+FK_PER_STEP = {
+    "balls": 0, "franka": 2, "franka_cube": 2, "attractor": 2, "uav_car": 0, "box": 0,
+    "mixed": 0, "pile": 0, "balls_terrain": 0, "nut_bolt": 0, "franka_nut_bolt": 2,
+    "soft_body": 3, "ant": 2, "franka_reach": 2, "render": 0, "ant_camera": 0,
+    "gym_balls": 0, "gym_franka_osc": 2, "gym_interop": 0, "sharded_franka": 2,
+    "sharded_balls": 0,
+}
+# sphere-world and fk launches and ms/step of each main path's timed run, by path
 PATH_LAUNCHES = {}
+PATH_FK = {}
 STEP_MS = {}
 
 
@@ -590,11 +611,69 @@ def time_layers(layers) -> None:
         log(f"  layer {name}: {ops} ops, {(time.perf_counter() - t) / 5 * 1e3:.3f} ms")
 
 
+def fk_kernel_phase(kernels) -> dict:
+    """csrc/fk.cu against its plain version _fk_torch at the Franka path's
+    shape (FRANKA_ENVS envs of the stand-in, a random start): the default
+    tolerance, one launch a call, two launches bitwise equal; its device time
+    by CUDA-graph replay beside its byte bound and the plain version's time.
+    Returns its entry of the {"kernels": ...} line."""
+    from test_isaacgym_tpu_torch.envs.franka import FrankaOscEnv
+    from test_isaacgym_tpu_torch.physics import kinematics as tk
+
+    t = time.perf_counter()
+    path = kernels.build("fk")
+    log(f"build: fk {time.perf_counter() - t:.2f} s -> {os.path.basename(path)}")
+    for line in kernels.build_logs.get("fk", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log("  ptxas:", line.strip())
+    env = FrankaOscEnv(num_envs=FRANKA_ENVS, device=DEV)
+    gi = env.sim.stepper.groups[0]
+    topo, s, sl = gi.topo, env.sim.state, gi.slots
+    rng = np.random.RandomState(0)
+    shape = (FRANKA_ENVS, len(sl), topo.num_dofs)
+    q, qd = (torch.as_tensor(a.astype(np.float32), device=DEV)
+             for a in (rng.uniform(-1, 1, shape), rng.normal(size=shape)))
+    args = (s.root_pos[:, sl], s.root_quat[:, sl], s.root_linvel[:, sl], s.root_angvel[:, sl],
+            q, qd)
+    kernels.launches.clear()
+    got = tk.fk(topo, *args)
+    if dict(kernels.launches) != {"fk": 1}:
+        raise RuntimeError(f"one fk call made these launches: {dict(kernels.launches)}")
+    want = tk._fk_torch(topo, *args)
+    torch.cuda.synchronize()
+    err, rel = max_rel_err(want, got)
+    log(f"fk kernel vs plain, {FRANKA_ENVS} envs of the stand-in: max |err| {err:.3e}, of "
+        f"largest magnitude {rel:.3e}")
+    if rel > GOLDEN_TOL:
+        raise RuntimeError(f"the fk kernel disagrees with plain: {rel:.3e} > {GOLDEN_TOL}")
+    if not all(torch.equal(a, b) for a, b in zip(got, tk.fk(topo, *args))):
+        raise RuntimeError("two fk launches on the same inputs differ")
+    # each input and output f32 read or written once, the topology's tables once
+    nbytes = 4 * (sum(a.numel() for a in args) + sum(o.numel() for o in got)
+                  + topo.fk_ints.numel() + topo.fk_floats.numel())
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    # a graph of FK_GRAPH_CALLS calls: one replay a call would time the
+    # host's replay, longer than this kernel
+    kernel_ms = graph_ms(lambda: [tk.fk(topo, *args) for _ in range(FK_GRAPH_CALLS)],
+                         reps=20) / FK_GRAPH_CALLS
+    plain_ms = graph_ms(lambda: tk._fk_torch(topo, *args), reps=20)
+    prof = device_ms(lambda: tk.fk(topo, *args), reps=50)
+    log(f"fk {FRANKA_ENVS} envs x {topo.num_links} links: kernel {kernel_ms:.5f} ms/call, plain "
+        f"{plain_ms:.5f} ms/call (device, CUDA-graph replay), bound {bound_ms:.6f} ms ({nbytes} "
+        f"bytes); the kernel's device time in the profiler "
+        f"{'not measured' if prof is None else f'{prof:.5f} ms'}; back to back (host "
+        f"included): kernel {time_ms(lambda: tk.fk(topo, *args), reps=200):.5f} ms, plain "
+        f"{time_ms(lambda: tk._fk_torch(topo, *args), reps=10, warmup=1):.5f} ms")
+    return {"name": "fk", "route": "cuda", "source": "test_isaacgym_tpu_torch/csrc/fk.cu",
+            "replaces": None, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
 def franka_phase(kernels) -> None:
     """The flagship Franka OSC path at FRANKA_ENVS envs: a timed run with
-    the hand-written kernels' counts read around it (the path has none, so
-    every count must stay 0), checks of its end state, a profile, and an
-    8-env run against the stand-in golden."""
+    the hand-written kernels' counts read around it (2 fk launches a step,
+    no sphere world), checks of its end state, a profile, and an 8-env run
+    against the stand-in golden."""
     from test_isaacgym_tpu_torch.envs.franka import STANDIN_ROOT, FrankaOscEnv
 
     t = time.perf_counter()
@@ -606,8 +685,7 @@ def franka_phase(kernels) -> None:
     run = env.rollout_fn(FRANKA_STEPS)
     s, step_ms, launches = timed(lambda: run(env.sim.state), kernels, "franka", FRANKA_STEPS,
                                  FRANKA_ENVS, "env")
-    if any(launches.values()):
-        raise RuntimeError(f"the Franka path launched hand-written kernels: {launches}")
+    expect_launches(launches, "franka", "franka", FRANKA_STEPS)
     assert_finite(s, "franka")
     assert_in_limits(s, env.sim.params, "franka")
     env.sim.state = s
@@ -721,11 +799,23 @@ def timed(run, kernels, what, steps, width, unit):
     wall = time.perf_counter() - t
     launches = dict(kernels.launches)
     PATH_LAUNCHES[what] = launches.get("sphere_world", 0)
+    PATH_FK[what] = launches.get("fk", 0)
     STEP_MS[what] = wall / steps * 1e3
     log(f"{what} main path: {steps} steps of {width} {unit} in {wall:.3f} s: "
         f"{width * steps / wall:.1f} {unit}-steps/s, {wall / steps * 1e3:.4f} ms/step, "
-        f"sphere_world launches {launches.get('sphere_world', 0)}")
+        f"sphere_world launches {launches.get('sphere_world', 0)}, fk launches "
+        f"{launches.get('fk', 0)}")
     return out, wall / steps * 1e3, launches
+
+
+def expect_launches(launches, what, kind, steps, sphere_world=0) -> None:
+    """The hand-written kernels' counts of a path's counted run of `steps`
+    steps (frames): exactly `sphere_world` sphere-world launches, exactly
+    FK_PER_STEP[kind] fk launches a step, no other."""
+    want = {"sphere_world": sphere_world, "fk": FK_PER_STEP[kind] * steps}
+    got = {k: launches.get(k, 0) for k in set(want) | set(launches)}
+    if got != {k: want.get(k, 0) for k in got}:
+        raise RuntimeError(f"{what} launched hand-written kernels {got}, want {want}")
 
 
 def device_ms(fn, reps=5):
@@ -808,8 +898,7 @@ def attractor_phase(kernels) -> None:
     assert_sync_free(lambda: step(s0), "attractor")
     (s, err), step_ms, launches = timed(lambda: run(s0, ATTRACTOR_STEPS), kernels, "attractor",
                                         ATTRACTOR_STEPS, ATTRACTOR_ENVS, "env")
-    if any(launches.values()):
-        raise RuntimeError(f"the attractor path launched hand-written kernels: {launches}")
+    expect_launches(launches, "attractor", "attractor", ATTRACTOR_STEPS)
     assert_finite(s, "attractor")
     assert_in_limits(s, params, "attractor")
     worst = float(err.max())
@@ -853,8 +942,7 @@ def uav_phase(kernels) -> None:
     assert_sync_free(lambda: env.step_fn(s0), "uav_car")
     (final, (pixels, _)), step_ms, launches = timed(
         lambda: env.rollout(UAV_STEPS), kernels, "uav_car", UAV_STEPS, UAV_ENVS, "env")
-    if any(launches.values()):
-        raise RuntimeError(f"the uav_car path launched hand-written kernels: {launches}")
+    expect_launches(launches, "uav_car", "uav_car", UAV_STEPS)
     assert_finite(final.sim, "uav_car")
     if not torch.isfinite(final.cam_rot).all():
         raise RuntimeError("uav_car cam_rot is not finite")
@@ -964,8 +1052,7 @@ def box_phase(kernels) -> None:
     assert_sync_free(lambda: run(s0, 1), f"box{BOX_COUNT}")
     s, step_ms, launches = timed(lambda: run(s0, BOX_STEPS), kernels, f"box{BOX_COUNT}",
                                  BOX_STEPS, BOX_COUNT, "body")
-    if launches.get("sphere_world", 0):
-        raise RuntimeError(f"the box world launched the sphere-world kernel: {launches}")
+    expect_launches(launches, f"box{BOX_COUNT}", "box", BOX_STEPS)
     assert_finite(s, f"box{BOX_COUNT}")
     z = s.root_pos[0, :, 2]
     vmax = float(s.root_linvel.abs().max())
@@ -1016,8 +1103,7 @@ def mixed_phase(kernels, sw) -> float:
     log(f"mixed200: sphere_world launches {launches.get('sphere_world', 0)}, want "
         f"{sw.LAUNCHES_PER_SOLVE} a solve x {stp.substeps} solves a step x {MIXED_STEPS} "
         f"steps = {want}")
-    if launches.get("sphere_world", 0) != want:
-        raise RuntimeError(f"the mixed world launched the kernel {launches} times, want {want}")
+    expect_launches(launches, "mixed200", "mixed", MIXED_STEPS, sphere_world=want)
     assert_finite(s, "mixed200")
     z = s.root_pos[0, :, 2]
     log(f"mixed200 after {MIXED_STEPS} steps: z in [{float(z.min()):.4f}, {float(z.max()):.4f}]")
@@ -1130,8 +1216,7 @@ def pile_phase(kernels, name, terrain=None) -> None:
     assert_sync_free(lambda: run(s0, 1), name)
     s, step_ms, launches = timed(lambda: run(s0, PILE_STEPS), kernels, name, PILE_STEPS, width,
                                  "env")
-    if launches.get("sphere_world", 0):
-        raise RuntimeError(f"{name} launched the sphere-world kernel: {launches}")
+    expect_launches(launches, name, "pile", PILE_STEPS)
     assert_finite(s, name)
     depth = c.narrowphase(s.body_pos, s.body_quat, sim.params)[2].cpu().numpy()
     clearance = pile.ground_clearance(c, depth)
@@ -1222,8 +1307,8 @@ def balls_terrain_phase(kernels, sw) -> float:
                                  BALLS_TERRAIN_STEPS, env.balls_per_world, "ball")
     log(f"balls_terrain1080: sphere_world launches {launches.get('sphere_world', 0)}, want "
         f"{sw.LAUNCHES_PER_SOLVE} a solve x {stp.substeps} a step x {BALLS_TERRAIN_STEPS} = {want}")
-    if launches.get("sphere_world", 0) != want:
-        raise RuntimeError(f"balls_terrain1080 launched the kernel {launches} times, want {want}")
+    expect_launches(launches, "balls_terrain1080", "balls_terrain", BALLS_TERRAIN_STEPS,
+                    sphere_world=want)
     assert_finite(s, "balls_terrain1080")
     depth = float(c.narrowphase(s.body_pos, s.body_quat, sim.params)[2].max())
     above, inside = centre_heights(sim, s)
@@ -1281,8 +1366,7 @@ def nut_bolt_phase(kernels) -> None:
     assert_sync_free(lambda: env.rollout(1, s0), name)
     s, step_ms, launches = timed(lambda: env.rollout(NUT_STEPS, s0), kernels, name, NUT_STEPS,
                                  NUT_ENVS, "env")
-    if launches.get("sphere_world", 0):
-        raise RuntimeError(f"{name} launched the sphere-world kernel: {launches}")
+    expect_launches(launches, name, "nut_bolt", NUT_STEPS)
     assert_finite(s, name)
     dz = (env.nut_height(s) - env.nut_height(s0)).cpu().numpy()
     want = 2 * env.pitch * env.spin / (2 * np.pi)
@@ -1346,8 +1430,7 @@ def franka_nut_bolt_phase(kernels) -> None:
     assert_sync_free(lambda: env.step_fn(ps), name)
     (end, (fsm_tr, _)), step_ms, launches = timed(lambda: env.rollout(FNB_STEPS, ps), kernels,
                                                    name, FNB_STEPS, FNB_ENVS, "env")
-    if launches.get("sphere_world", 0):
-        raise RuntimeError(f"{name} launched the sphere-world kernel: {launches}")
+    expect_launches(launches, name, "franka_nut_bolt", FNB_STEPS)
     assert_finite(end.sim, name)
     assert_in_limits(end.sim, env.sim.params, name)
     golden = np.load(port_data("franka_nut_bolt_standin.npz"))
@@ -1449,8 +1532,7 @@ def soft_body_phase(kernels) -> None:
     assert_sync_free(lambda: run(s0, 1), name)
     s, step_ms, launches = timed(lambda: run(s0, SOFT_STEPS), kernels, name, SOFT_STEPS,
                                  SOFT_ENVS, "env")
-    if launches.get("sphere_world", 0):
-        raise RuntimeError(f"{name} launched the sphere-world kernel: {launches}")
+    expect_launches(launches, name, "soft_body", SOFT_STEPS)
     assert_finite(s, name)
 
     golden = np.load(port_data("soft_body_standin.npz"))
@@ -1589,8 +1671,7 @@ def ant_phase(kernels) -> None:
         return obs, reset, done
 
     (obs, reset, done), step_ms, launches = timed(run, kernels, name, ANT_STEPS, ANT_ENVS, "env")
-    if launches.get("sphere_world", 0):
-        raise RuntimeError(f"{name} launched the sphere-world kernel: {launches}")
+    expect_launches(launches, name, "ant", ANT_STEPS)
     (share, left_share, height), left = ant_stats(obs, reset)
     s = env.state
     for key, v in s._asdict().items():
@@ -1672,8 +1753,7 @@ def reach_phase(kernels) -> None:
         return obs, rew
 
     (obs, rew), step_ms, launches = timed(run, kernels, name, REACH_STEPS, REACH_ENVS, "env")
-    if launches.get("sphere_world", 0):
-        raise RuntimeError(f"{name} launched the sphere-world kernel: {launches}")
+    expect_launches(launches, name, "franka_reach", REACH_STEPS)
     assert_finite(env.state, name)
     assert_in_limits(env.state, env.sim.params, name)
     log(f"{name}: mean reward after {REACH_STEPS} steps {float(rew.mean()):.6f}")
@@ -1694,14 +1774,15 @@ def reach_phase(kernels) -> None:
         raise RuntimeError(f"{name} departs from the golden: {worst:.3e} > {GOLDEN_TOL}")
 
 
-def no_kernel_launches(kernels, what) -> None:
-    """The hand-written kernels' counts of a run of a path that has none:
-    recorded by path, and each must be 0."""
+def counted_launches(kernels, what, kind, frames) -> None:
+    """The hand-written kernels' counts of a counted run of `frames` frames
+    of a path without the sphere world: recorded by path, and held by
+    expect_launches."""
     launches = dict(kernels.launches)
     PATH_LAUNCHES[what] = launches.get("sphere_world", 0)
-    log(f"{what}: sphere_world launches {PATH_LAUNCHES[what]}")
-    if any(launches.values()):
-        raise RuntimeError(f"{what} launched hand-written kernels: {launches}")
+    PATH_FK[what] = launches.get("fk", 0)
+    log(f"{what}: sphere_world launches {PATH_LAUNCHES[what]}, fk launches {PATH_FK[what]}")
+    expect_launches(launches, what, kind, frames)
 
 
 def nut_scene_render(raster, sim, tb, width, height, seg=None):
@@ -1764,7 +1845,7 @@ def render_phase(kernels) -> None:
         out = frame()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t) / RENDER_FRAMES * 1e3
-    no_kernel_launches(kernels, name)
+    counted_launches(kernels, name, "render", RENDER_FRAMES)
     hit = float(torch.isfinite(out[1]).float().mean())
     log(f"{name}: {ms:.4f} ms/frame over {RENDER_FRAMES} frames ({w * h} rays a frame), "
         f"{hit:.4f} of the pixels hit, peak device memory "
@@ -1829,7 +1910,7 @@ def camera_phase(kernels) -> None:
     a = frames()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    no_kernel_launches(kernels, name)
+    counted_launches(kernels, name, "ant_camera", CAMERA_FRAMES)
     log(f"{name}: {CAMERA_FRAMES} frames of {ANT_ENVS} {w}x{h} cameras in {wall:.3f} s: "
         f"{wall / CAMERA_FRAMES * 1e3:.4f} ms/frame, {ANT_ENVS * CAMERA_FRAMES / wall:.1f} "
         f"env-frames/s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1850,8 +1931,8 @@ def camera_phase(kernels) -> None:
 
 def cube_phase(kernels) -> None:
     """The franka_cube pick path at CUBE_ENVS envs under OSC: a timed run
-    with the hand-written kernels' counts read around it (the path has none,
-    so every count must stay 0), checks of its end state, a step with host
+    with the hand-written kernels' counts read around it (2 fk launches a
+    step, no sphere world), checks of its end state, a step with host
     syncs made errors, per-layer ops and host ms, a profile, the 4-env
     golden of both controllers, and the grip and lift shares."""
     from test_isaacgym_tpu_torch.envs.franka import STANDIN_ROOT
@@ -1870,8 +1951,7 @@ def cube_phase(kernels) -> None:
     run = env.rollout_fn(CUBE_STEPS)
     (end, (gripped, box_z)), step_ms, launches = timed(lambda: run(ps), kernels, "franka_cube",
                                                        CUBE_STEPS, CUBE_ENVS, "env")
-    if any(launches.values()):
-        raise RuntimeError(f"the franka_cube path launched hand-written kernels: {launches}")
+    expect_launches(launches, "franka_cube", "franka_cube", CUBE_STEPS)
     s = end.sim
     assert_finite(s, "franka_cube")
     assert_in_limits(s, env.sim.params, "franka_cube")
@@ -1942,9 +2022,8 @@ def gym_balls_phase(kernels) -> None:
             step()
 
     _, step_ms, launches = timed(run, kernels, name, GYM_BALL_STEPS, F, "ball")
-    want = GYM_BALL_STEPS * LAUNCHES_PER_SOLVE
-    if launches.get("sphere_world", 0) != want:
-        raise RuntimeError(f"{name} launched the kernel {launches} times, want {want}")
+    expect_launches(launches, name, "gym_balls", GYM_BALL_STEPS,
+                    sphere_world=GYM_BALL_STEPS * LAUNCHES_PER_SOLVE)
     gym.refresh_net_contact_force_tensor(sim)
     zmin, zmax = float(root[:, 2].min()), float(root[:, 2].max())
     fz = float(contact[:, 2].max())
@@ -2019,8 +2098,7 @@ def gym_franka_osc_phase(kernels) -> None:
             loop.step(itr)
 
     _, step_ms, launches = timed(run, kernels, name, GYM_OSC_STEPS, GYM_OSC_ENVS, "env")
-    if any(launches.values()):
-        raise RuntimeError(f"{name} launched hand-written kernels: {launches}")
+    expect_launches(launches, name, "gym_franka_osc", GYM_OSC_STEPS)
     s = sim.sim.state
     assert_finite(s, name)
     g = np.load(port_data("gym_franka_osc_standin.npz"))
@@ -2119,7 +2197,7 @@ def gym_interop_phase(kernels) -> None:
     torch.cuda.reset_peak_memory_stats()
     (img, a), step_ms, launches = timed(run, kernels, name, GYM_CAMERA_FRAMES, GYM_CAMERA_ENVS,
                                         "env")
-    no_kernel_launches(kernels, name)
+    counted_launches(kernels, name, "gym_interop", GYM_CAMERA_FRAMES)
     log(f"{name}: {step_ms:.4f} ms/frame (physics, render of {GYM_CAMERA_ENVS * 128 * 128} rays, "
         f"the image tensor), {GYM_CAMERA_ENVS / step_ms * 1e3:.1f} env-frames/s, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"image tensor {tuple(img.shape)} {img.dtype} on {img.device}")
@@ -2197,8 +2275,7 @@ def sharded_checks(kernels, envs_per_rank=SHARD_ENVS, steps=SHARD_STEPS,
     dist.barrier()
     (final, obs), ms_gather, launches = timed(lambda: run(st, ac, pa), kernels, name, steps,
                                               envs_per_rank, "env")
-    if any(launches.values()):
-        raise RuntimeError(f"{name} launched hand-written kernels: {launches}")
+    expect_launches(launches, name, "sharded_franka", steps)
     if tuple(obs.shape) != (steps, n, 9) or not torch.isfinite(obs).all():
         raise RuntimeError(f"{name}: gathered obs {tuple(obs.shape)} not finite or not (steps, N, 9)")
     assert_finite(final, name)
@@ -2272,10 +2349,8 @@ def sharded_checks(kernels, envs_per_rank=SHARD_ENVS, steps=SHARD_STEPS,
     dist.barrier()
     out, _, launches = timed(lambda: brun(bs, ba, bp), kernels, name, ball_steps,
                              worlds_per_rank * benv.balls_per_world, "ball")
-    want_launches = ball_steps * LAUNCHES_PER_SOLVE
-    if launches.get("sphere_world", 0) != want_launches:
-        raise RuntimeError(f"{name} rank {rank} launched the kernel {launches} times, "
-                           f"want {want_launches}")
+    expect_launches(launches, f"{name} rank {rank}", "sharded_balls", ball_steps,
+                    sphere_world=ball_steps * LAUNCHES_PER_SOLVE)
     assert_finite(out, name)
     pos = pm.gather_obs(out.root_pos, mesh=mesh)
     force = pm.psum_metrics(out.contact_force.sum((0, 1)), mesh)
@@ -2380,11 +2455,12 @@ def examples_phase() -> None:
     with concurrent.futures.ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
         runs = [pool.submit(run_example_script, s, a) for s, a, _ in table]
         runs = [r.result() for r in runs]
-    failures, launches = [], 0
+    failures, launches, fk = [], 0, 0
     for (script, argv, want), (sec, rc, lines, err) in zip(table, runs):
         res = rule.result_line(lines) or {}
         bad = example_outcome(script, want, records[(script, tuple(argv))], rc, lines)
-        launches += sum(res.get("launches", {}).values())
+        launches += res.get("launches", {}).get("sphere_world", 0)
+        fk += res.get("launches", {}).get("fk", 0)
         stated = "the JAX run" if want is None else f"{want[0]} at {want[1]}"
         log(f"example {script} {' '.join(argv)}: exit {rc} in {sec:.1f} s, outcome "
             f"{'as stated' if not bad else 'NOT as stated'} ({stated}), sims on "
@@ -2395,6 +2471,7 @@ def examples_phase() -> None:
             log("  stderr: " + err[-1500:])
             failures.append(script)
     PATH_LAUNCHES["examples"] = launches
+    PATH_FK["examples"] = fk
     if failures:
         raise RuntimeError(f"examples not as stated: {failures}")
 
@@ -2481,8 +2558,7 @@ def main() -> int:
     run = env.rollout_fn(STEPS)
     s, step_ms, launches = timed(lambda: run(env.sim.state), _kernels, "balls", STEPS,
                                  env.balls_per_world, "ball")
-    if launches.get("sphere_world", 0) != STEPS * per_solve:
-        raise RuntimeError(f"sphere_world launched {launches} times, want {STEPS * per_solve}")
+    expect_launches(launches, "balls", "balls", STEPS, sphere_world=STEPS * per_solve)
     assert_finite(s, "balls")
     z = s.root_pos[0, :, 2]
     zmin, zmax = float(z.min()), float(z.max())
@@ -2505,7 +2581,9 @@ def main() -> int:
 
     log(f"phase kernel checks, balls and the 120-ball drop: {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 5. the flagship Franka OSC path, with its own counts ----
+    # ---- 5. the fk kernel at the Franka path's shape, then the flagship
+    # Franka OSC path, with its own counts ----
+    fk_entry = phase_timed(fk_kernel_phase, _kernels)
     phase_timed(franka_phase, _kernels)
 
     # ---- 6. the franka_cube pick path (the contact table), with its own counts ----
@@ -2569,6 +2647,7 @@ def main() -> int:
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     log("sphere_world launches by main path: "
         + ", ".join(f"{k} {v}" for k, v in PATH_LAUNCHES.items()))
+    log("fk launches by main path: " + ", ".join(f"{k} {v}" for k, v in PATH_FK.items()))
     log(json.dumps({"kernels": [{
         "name": "sphere_world",
         "route": "cuda",
@@ -2582,7 +2661,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }, dict(fk_entry, launches=sum(PATH_FK.values()))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -2,14 +2,24 @@
 
 Port of test_isaacgym_tpu/physics/kinematics.py. Given root pose/velocity and
 generalized coordinates, computes the world pose and velocity of every link.
-The per-link loop runs in Python over the static topology (links <= ~32);
-every op inside is batched over arbitrary leading axes (env, copy).
+
+`fk` has two implementations of one function, picked by the tensors' device
+alone (no switch, no fallback):
+  * `_fk_cuda`, the wrapper of the hand-written kernel csrc/fk.cu, for CUDA
+    float32 tensors: one launch a call, one thread a batch element walking
+    the links, reading the topology from the tables `fk_table` packs once
+    per topology;
+  * `_fk_torch`, the plain version, for CPU tensors and as the kernel's
+    reference: a Python loop over the static topology (links <= ~32) whose
+    ops are batched over arbitrary leading axes (env, copy).
 
 Velocities are carried as (omega_world, v_link_origin) pairs — no large-offset
 spatial origins, safe in f32 for grid-spread envs.
 """
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -17,6 +27,7 @@ import torch
 
 from ..core.scene import JT_PRISMATIC, JT_REVOLUTE, JT_ROOT, ArtGroup
 from ..math.quat import cross as _cross, quat_mul, quat_rotate
+from ..ops import _kernels
 from ..utils.trace import span
 
 
@@ -66,10 +77,27 @@ def topo_masks(parent, jtype, dof_of_link, device) -> TopoMasks:
     return TopoMasks(*(torch.as_tensor(a, device=device) for a in arrays))
 
 
+def fk_table(parent, jtype, dof_of_link, axis, jp_pos, jp_quat, jc_pos, jc_quat, device):
+    """The per-link constants of one topology as csrc/fk.cu reads them, on
+    `device`: an (L, 3) int32 table of (parent, jtype, dof_of_link) and an
+    (L, 17) float32 table of (axis, jp_pos, jp_quat, jc_pos, jc_quat) side by
+    side (csrc/fk.cu kInts, kFloats). The kernel walks the links in index
+    order and reads each parent's result back, so every link but a root must
+    have its parent earlier: raises otherwise."""
+    for i, (p, jt) in enumerate(zip(parent, jtype)):
+        if jt != JT_ROOT and not 0 <= p < i:
+            raise ValueError(f"fk: link {i}'s parent {p} does not come before it")
+    ints = np.stack([np.asarray(a, np.int32) for a in (parent, jtype, dof_of_link)], -1)
+    floats = np.concatenate(
+        [np.asarray(a, np.float32).reshape(len(parent), -1)
+         for a in (axis, jp_pos, jp_quat, jc_pos, jc_quat)], -1)
+    return torch.as_tensor(ints, device=device), torch.as_tensor(floats, device=device)
+
+
 class ArtTopo(NamedTuple):
     """Device-constant topology for one articulation group. Integer maps are
     Python tuples (they drive the per-link Python loop); the rest are tensors
-    on one device, `masks` included."""
+    on one device, `masks` and the kernel's tables included."""
 
     parent: Tuple[int, ...]
     jtype: Tuple[int, ...]
@@ -85,6 +113,8 @@ class ArtTopo(NamedTuple):
     inertia: torch.Tensor  # (Ls, 3, 3)
     fixed_base: bool
     masks: TopoMasks
+    fk_ints: torch.Tensor  # (Ls, 3) int32: fk_table
+    fk_floats: torch.Tensor  # (Ls, 17) f32: fk_table
 
     @property
     def num_links(self):
@@ -102,6 +132,8 @@ def topo_from_group(g: ArtGroup, device="cuda") -> ArtTopo:
     parent = tuple(int(x) for x in g.parent)
     jtype = tuple(int(x) for x in g.jtype)
     dof_of_link = tuple(int(x) for x in g.dof_of_link)
+    fk_ints, fk_floats = fk_table(parent, jtype, dof_of_link, g.axis, g.jp_pos, g.jp_quat,
+                                  g.jc_pos, g.jc_quat, device)
     return ArtTopo(
         parent=parent,
         jtype=jtype,
@@ -117,6 +149,8 @@ def topo_from_group(g: ArtGroup, device="cuda") -> ArtTopo:
         inertia=f32(g.inertia),
         fixed_base=bool(g.fixed_base),
         masks=topo_masks(parent, jtype, dof_of_link, device),
+        fk_ints=fk_ints,
+        fk_floats=fk_floats,
     )
 
 
@@ -134,67 +168,152 @@ def fk(
     Inputs are batched: root_* (..., 3/4), dof_* (..., D).
     Returns (pos, quat, linvel, angvel) each (..., Ls, ...): world link frames,
     linvel = velocity of the link-frame origin, angvel = world angular velocity.
+    CPU tensors take the plain version; CUDA tensors launch csrc/fk.cu.
     """
     with span("fk"):
-        L = topo.num_links
-        pos, quat, lin, ang = [], [], [], []
-        for i in range(L):
-            if topo.jtype[i] == JT_ROOT:
-                pos.append(root_pos)
-                quat.append(root_quat)
-                lin.append(root_linvel)
-                ang.append(root_angvel)
-                continue
-            p = topo.parent[i]
-            # joint frame in world
-            jf_pos = pos[p] + quat_rotate(quat[p], topo.jp_pos[i])
-            jf_quat = quat_mul(quat[p], topo.jp_quat[i])
-            d = topo.dof_of_link[i]
-            jt = topo.jtype[i]
-            if jt == JT_REVOLUTE:
-                q_i = dof_pos[..., d]
-                qd_i = dof_vel[..., d]
-                half = 0.5 * q_i
-                s, c = torch.sin(half), torch.cos(half)
-                jq = torch.stack(
-                    [topo.axis[i, 0] * s, topo.axis[i, 1] * s, topo.axis[i, 2] * s, c],
-                    dim=-1,
-                )
-                post_quat = quat_mul(jf_quat, jq)
-                axis_w = quat_rotate(jf_quat, topo.axis[i])
-                body_quat = quat_mul(post_quat, topo.jc_quat[i])
-                body_pos = jf_pos + quat_rotate(post_quat, topo.jc_pos[i])
-                w = ang[p] + axis_w * qd_i[..., None]
-                v = (
-                    lin[p]
-                    + _cross(ang[p], jf_pos - pos[p])
-                    + _cross(axis_w * qd_i[..., None], body_pos - jf_pos)
-                )
-            elif jt == JT_PRISMATIC:
-                q_i = dof_pos[..., d]
-                qd_i = dof_vel[..., d]
-                axis_w = quat_rotate(jf_quat, topo.axis[i])
-                body_quat = quat_mul(jf_quat, topo.jc_quat[i])
-                body_pos = (
-                    jf_pos + axis_w * q_i[..., None] + quat_rotate(jf_quat, topo.jc_pos[i])
-                )
-                w = ang[p]
-                v = lin[p] + _cross(ang[p], body_pos - pos[p]) + axis_w * qd_i[..., None]
-            else:  # fixed
-                body_quat = quat_mul(jf_quat, topo.jc_quat[i])
-                body_pos = jf_pos + quat_rotate(jf_quat, topo.jc_pos[i])
-                w = ang[p]
-                v = lin[p] + _cross(ang[p], body_pos - pos[p])
-            pos.append(body_pos)
-            quat.append(body_quat)
-            lin.append(v)
-            ang.append(w)
-        return (
-            torch.stack(pos, dim=-2),
-            torch.stack(quat, dim=-2),
-            torch.stack(lin, dim=-2),
-            torch.stack(ang, dim=-2),
+        args = (root_pos, root_quat, root_linvel, root_angvel, dof_pos, dof_vel)
+        if root_pos.device.type == "cpu":
+            return _fk_torch(topo, *args)
+        return _fk_cuda(topo, *args)
+
+
+def _fk_torch(
+    topo: ArtTopo,
+    root_pos,
+    root_quat,
+    root_linvel,
+    root_angvel,
+    dof_pos,
+    dof_vel,
+):
+    """`fk`'s plain version: the per-link loop of batched PyTorch ops."""
+    L = topo.num_links
+    pos, quat, lin, ang = [], [], [], []
+    for i in range(L):
+        if topo.jtype[i] == JT_ROOT:
+            pos.append(root_pos)
+            quat.append(root_quat)
+            lin.append(root_linvel)
+            ang.append(root_angvel)
+            continue
+        p = topo.parent[i]
+        # joint frame in world
+        jf_pos = pos[p] + quat_rotate(quat[p], topo.jp_pos[i])
+        jf_quat = quat_mul(quat[p], topo.jp_quat[i])
+        d = topo.dof_of_link[i]
+        jt = topo.jtype[i]
+        if jt == JT_REVOLUTE:
+            q_i = dof_pos[..., d]
+            qd_i = dof_vel[..., d]
+            half = 0.5 * q_i
+            s, c = torch.sin(half), torch.cos(half)
+            jq = torch.stack(
+                [topo.axis[i, 0] * s, topo.axis[i, 1] * s, topo.axis[i, 2] * s, c],
+                dim=-1,
+            )
+            post_quat = quat_mul(jf_quat, jq)
+            axis_w = quat_rotate(jf_quat, topo.axis[i])
+            body_quat = quat_mul(post_quat, topo.jc_quat[i])
+            body_pos = jf_pos + quat_rotate(post_quat, topo.jc_pos[i])
+            w = ang[p] + axis_w * qd_i[..., None]
+            v = (
+                lin[p]
+                + _cross(ang[p], jf_pos - pos[p])
+                + _cross(axis_w * qd_i[..., None], body_pos - jf_pos)
+            )
+        elif jt == JT_PRISMATIC:
+            q_i = dof_pos[..., d]
+            qd_i = dof_vel[..., d]
+            axis_w = quat_rotate(jf_quat, topo.axis[i])
+            body_quat = quat_mul(jf_quat, topo.jc_quat[i])
+            body_pos = (
+                jf_pos + axis_w * q_i[..., None] + quat_rotate(jf_quat, topo.jc_pos[i])
+            )
+            w = ang[p]
+            v = lin[p] + _cross(ang[p], body_pos - pos[p]) + axis_w * qd_i[..., None]
+        else:  # fixed
+            body_quat = quat_mul(jf_quat, topo.jc_quat[i])
+            body_pos = jf_pos + quat_rotate(jf_quat, topo.jc_pos[i])
+            w = ang[p]
+            v = lin[p] + _cross(ang[p], body_pos - pos[p])
+        pos.append(body_pos)
+        quat.append(body_quat)
+        lin.append(v)
+        ang.append(w)
+    return (
+        torch.stack(pos, dim=-2),
+        torch.stack(quat, dim=-2),
+        torch.stack(lin, dim=-2),
+        torch.stack(ang, dim=-2),
+    )
+
+
+
+# ---------------------------------------------------------------------------
+# the hand-written kernel's wrapper (csrc/fk.cu)
+# ---------------------------------------------------------------------------
+_P = ctypes.c_void_p
+_ARGTYPES = (
+    [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong]  # ints floats L D B
+    + [_P] * 6  # root_pos root_quat root_lin root_ang dof_pos dof_vel
+    + [_P] * 4  # pos quat lin ang
+    + [_P]  # stream
+)
+
+
+def _library():
+    lib = _kernels.load("fk")
+    if lib.fk_forward.argtypes is None:
+        lib.fk_forward.argtypes = _ARGTYPES
+        lib.fk_forward.restype = ctypes.c_int
+    return lib
+
+
+def _fk_cuda(topo: ArtTopo, *args):
+    """One launch of csrc/fk.cu on the current stream for float32 CUDA
+    tensors; raises on anything else. Leading axes broadcast as in the plain
+    version and are flattened into the kernel's batch."""
+    lead = args[0].shape[:-1]
+    if any(a.shape[:-1] != lead for a in args[1:]):
+        lead = torch.broadcast_shapes(*(a.shape[:-1] for a in args))
+        args = tuple(a.expand(lead + a.shape[-1:]) for a in args)
+    dev = args[0].device
+    L, D = topo.num_links, topo.num_dofs
+    for name, t, width in zip(
+        ("root_pos", "root_quat", "root_linvel", "root_angvel", "dof_pos", "dof_vel"),
+        args, (3, 4, 3, 3, D, D),
+    ):
+        if t.device != dev or dev.type != "cuda" or t.dtype != torch.float32:
+            raise ValueError(
+                f"fk kernel: {name} must be float32 on one CUDA device, "
+                f"got {t.dtype} on {t.device}"
+            )
+        if t.shape[-1] != width:
+            raise ValueError(f"fk kernel: {name} must end in {width}, got {tuple(t.shape)}")
+        if t.requires_grad:
+            raise ValueError(f"fk kernel: {name} requires grad; the kernel has no backward")
+    if topo.fk_ints.device != dev:
+        raise ValueError(f"fk kernel: the topology lies on {topo.fk_ints.device}, not {dev}")
+    root_pos, root_quat, root_lin, root_ang, q, qd = (a.contiguous() for a in args)
+    pos, lin, ang = torch.empty((3,) + lead + (L, 3), dtype=torch.float32, device=dev).unbind(0)
+    quat = torch.empty(lead + (L, 4), dtype=torch.float32, device=dev)
+    B = math.prod(lead)
+    if B == 0:  # no batch element: nothing to launch
+        return pos, quat, lin, ang
+    lib = _library()
+    # the library launches on the current device: make it the tensors' one
+    with torch.cuda.device(dev):
+        err = lib.fk_forward(
+            topo.fk_ints.data_ptr(), topo.fk_floats.data_ptr(), L, D, B,
+            root_pos.data_ptr(), root_quat.data_ptr(), root_lin.data_ptr(),
+            root_ang.data_ptr(), q.data_ptr(), qd.data_ptr(),
+            pos.data_ptr(), quat.data_ptr(), lin.data_ptr(), ang.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
+    if err != 0:
+        raise RuntimeError(f"fk kernel launch failed: CUDA error {err}")
+    _kernels.launches["fk"] += 1
+    return pos, quat, lin, ang
 
 
 def joint_world_frames(topo: ArtTopo, pos, quat):
