@@ -767,7 +767,8 @@ class SceneBuilder:
         # --- soft bodies ----------------------------------------------------
         from ..physics.soft import build_soft_world
 
-        soft = build_soft_world(protos, actors, shapes, self.env_origins[0], hulls)
+        with stage("setup.soft"):
+            soft = build_soft_world(protos, actors, shapes, self.env_origins[0], hulls)
 
         scene = Scene(
             sim_params=self.sim_params,

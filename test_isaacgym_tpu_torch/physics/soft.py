@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..math.quat import cross, quat_mul, quat_rotate, quat_rotate_inverse
+from ..utils.trace import span
 
 
 # ---------------------------------------------------------------------------
@@ -447,8 +448,9 @@ class SoftStepper:
         N, T = soft_pos.shape[0], self.world.num_tets
         p, consts, lam_d, lam_h = self.prepare(soft_pos, soft_vel, body_pos, body_quat,
                                                params, h, gravity)
-        for _ in range(self.iters):
-            p, lam_d, lam_h = self.iterate(p, lam_d, lam_h, consts)
+        with span("soft.iterations"):
+            for _ in range(self.iters):
+                p, lam_d, lam_h = self.iterate(p, lam_d, lam_h, consts)
 
         # Coulomb-style position friction, ONCE per substep: ground-contact
         # verts lose tangential motion up to mu * (normal correction)

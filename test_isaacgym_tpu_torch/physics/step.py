@@ -39,7 +39,7 @@ from ..math.quat import (
 from ..math.spatial import skew
 from ..utils import debug as _debug
 from ..utils.linalg import spd_inv, spd_solve
-from ..utils.trace import span
+from ..utils.trace import span, stage
 from . import contacts as contacts_mod
 from . import dynamics
 from .kinematics import ArtTopo, body_jacobian, fk, jacobian as link_jacobian, topo_from_group
@@ -144,7 +144,10 @@ class Stepper:
                 )
         self._eye6 = torch.eye(6, dtype=torch.float32, device=dev)
         self.contact = contacts_mod.ContactSolver(scene, device=dev)
-        self.soft = None if scene.soft is None else SoftStepper(scene.soft, scene, dev)
+        self.soft = None
+        if scene.soft is not None:
+            with stage("setup.soft"):
+                self.soft = SoftStepper(scene.soft, scene, dev)
         # groups whose links have contact rows: their Jacobians and inverse
         # implicit operators feed the solve
         self._group_has_rows = [len(ia) + len(ib) > 0 for ia, ib in self.contact.link_lists]
@@ -194,10 +197,11 @@ class Stepper:
                     # the body cache, which refreshes at step end, so the press
                     # lags the rigid substeps (as in the JAX package; invisible
                     # at 1/60)
-                    sp, sv = self.soft.substep(
-                        state.soft_pos, state.soft_vel, state.body_pos, state.body_quat,
-                        params, self.h, params.gravity,
-                    )
+                    with span("sim.soft"):
+                        sp, sv = self.soft.substep(
+                            state.soft_pos, state.soft_vel, state.body_pos, state.body_quat,
+                            params, self.h, params.gravity,
+                        )
                     state = state._replace(soft_pos=sp, soft_vel=sv)
                 first = False
             state = self.refresh_body_state(state, params)

@@ -24,6 +24,12 @@ Spans, nested as the calls are:
                            ops/sphere_world.solve (two launches on the card)
                            and the scatter of its results
     sim.phase_d            integrate: joint limits and position integration
+    sim.soft               the XPBD soft solve after each rigid substep
+                           (physics/soft.py SoftStepper.substep): 3 a step
+                           with 3 substeps
+      soft.iterations      SoftStepper.substep's loop of its iterations
+                           (flex outer x inner), between the prediction and
+                           the friction and damping
     sim.refresh            Stepper.refresh_body_state: the body-cache refresh
   fk                       physics/kinematics.py fk, wherever it is called
   crba                     physics/dynamics.py crba: the mass matrix
@@ -40,6 +46,11 @@ Stages:
   setup.finalize           SceneBuilder.finalize and core/sim.py
                            Simulator.__init__ (the Stepper, the contact
                            tables, the device tensors)
+    setup.soft             inside setup.finalize: physics/soft.py
+                           build_soft_world (from SceneBuilder.finalize;
+                           microseconds in a scene without `<fem>` links)
+                           and SoftStepper.__init__ (from the Stepper's),
+                           both host loops over tets
 """
 from __future__ import annotations
 
