@@ -54,7 +54,10 @@ franka_nut_bolt_standin.npz); last the soft-body path, with its counts read
 around its run (the sphere-world count must stay 0): the reference's
 examples/soft_body.py at 1024 envs for 120 steps (envs/soft_body.py, the
 code-built tet icosphere stand-in on the XPBD solve, a press plate held
-over it), every env's lowest vertex and volume ratio against the example's
+over it; 3 launches a step of the XPBD kernel, csrc/xpbd.cu), the kernel
+against its plain version on one substep of the 1024 envs mid-impact and
+its device time by CUDA-graph replay beside its operations bound and the
+plain version's, every env's lowest vertex and volume ratio against the example's
 and tests/test_soft.py's bounds and their spread against the JAX package's
 1024 envs, two 4-step runs bitwise equal, a TIG_DEBUG step, and 4 envs
 and the pedestal scene (sphere, capsule and hull colliders) against
@@ -104,8 +107,9 @@ examples_jax.json by tests/test_torch_examples_physics.py's rule, or
 stopping where the table states with every line before the stop the JAX
 run's, every sim on the card, graphics_camera's image written by its own
 run. Every path's counted run is held to exact counts of each kernel: its
-sphere-world launches, and FK_PER_STEP fk launches a step (2 on the
-articulated paths with two substeps, 0 where there is no articulation). It
+sphere-world launches, FK_PER_STEP fk launches a step (2 on the
+articulated paths with two substeps, 0 where there is no articulation) and
+XPBD_PER_STEP xpbd launches a step (one a substep of a soft scene). It
 prints:
   * the card's name and power limit (nvidia-smi);
   * per-phase numbers (build seconds, kernel and plain times, each launch's
@@ -359,9 +363,18 @@ FK_PER_STEP = {
     "gym_balls": 0, "gym_franka_osc": 2, "gym_interop": 0, "sharded_franka": 2,
     "sharded_balls": 0,
 }
-# sphere-world and fk launches and ms/step of each main path's timed run, by path
+# xpbd kernel launches (csrc/xpbd.cu, one a SoftStepper.substep) a step of
+# each path's counted run: one a substep where the scene has soft bodies
+XPBD_PER_STEP = {"soft_body": 3}
+# the kernel against its plain version on one substep (tests/test_torch_soft_kernel.py's
+# KERNEL_TOL: positions, and velocities as metres a substep, of the largest position)
+XPBD_TOL = 1e-5
+# the soft substep's step into the drop where it is held to its plain version: mid-impact
+XPBD_CHECK_STEP = 20
+# sphere-world, fk and xpbd launches and ms/step of each main path's timed run, by path
 PATH_LAUNCHES = {}
 PATH_FK = {}
+PATH_XPBD = {}
 STEP_MS = {}
 
 
@@ -800,19 +813,22 @@ def timed(run, kernels, what, steps, width, unit):
     launches = dict(kernels.launches)
     PATH_LAUNCHES[what] = launches.get("sphere_world", 0)
     PATH_FK[what] = launches.get("fk", 0)
+    PATH_XPBD[what] = launches.get("xpbd", 0)
     STEP_MS[what] = wall / steps * 1e3
     log(f"{what} main path: {steps} steps of {width} {unit} in {wall:.3f} s: "
         f"{width * steps / wall:.1f} {unit}-steps/s, {wall / steps * 1e3:.4f} ms/step, "
         f"sphere_world launches {launches.get('sphere_world', 0)}, fk launches "
-        f"{launches.get('fk', 0)}")
+        f"{launches.get('fk', 0)}, xpbd launches {launches.get('xpbd', 0)}")
     return out, wall / steps * 1e3, launches
 
 
 def expect_launches(launches, what, kind, steps, sphere_world=0) -> None:
     """The hand-written kernels' counts of a path's counted run of `steps`
     steps (frames): exactly `sphere_world` sphere-world launches, exactly
-    FK_PER_STEP[kind] fk launches a step, no other."""
-    want = {"sphere_world": sphere_world, "fk": FK_PER_STEP[kind] * steps}
+    FK_PER_STEP[kind] fk and XPBD_PER_STEP[kind] xpbd launches a step, no
+    other."""
+    want = {"sphere_world": sphere_world, "fk": FK_PER_STEP[kind] * steps,
+            "xpbd": XPBD_PER_STEP.get(kind, 0) * steps}
     got = {k: launches.get(k, 0) for k in set(want) | set(launches)}
     if got != {k: want.get(k, 0) for k in got}:
         raise RuntimeError(f"{what} launched hand-written kernels {got}, want {want}")
@@ -1475,20 +1491,16 @@ def franka_nut_bolt_phase(kernels) -> None:
 
 
 def soft_layers(sim, state) -> None:
-    """Ops and host ms (time_layers) of a substep's soft part (its XPBD
-    iterations, friction and damping), of one XPBD iteration and of the
-    collider projection inside it; and the soft part's device ms a step."""
+    """Ops and host ms (time_layers) of a substep's soft part (its materials
+    in eager ops, then one launch of csrc/xpbd.cu: the XPBD iterations,
+    friction and damping); and the soft part's device ms a step."""
     stp, params = sim.stepper, sim.params
     sf = stp.soft
     args = (state.soft_pos, state.soft_vel, state.body_pos, state.body_quat, params, stp.h,
             params.gravity)
-    p, consts, lam_d, lam_h = sf.prepare(*args)
     time_layers({
-        f"soft substep ({sf.iters} XPBD iterations, friction, damping)": lambda: sf.substep(*args),
-        "one XPBD iteration (both tet constraints, the gather, the projection)":
-            lambda: sf.iterate(p, lam_d, lam_h, consts),
-        f"collider projection (ground and {len(sf.colliders)} colliders)":
-            lambda: sf.collide(p, consts.colliders),
+        f"soft substep (materials, then the xpbd kernel: {sf.iters} XPBD iterations, friction, "
+        "damping)": lambda: sf.substep(*args),
     })
     ms = device_ms(lambda: [sf.substep(*args) for _ in range(stp.substeps)], reps=1)
     log(f"  soft part's device time a step ({stp.substeps} substeps): "
@@ -1506,10 +1518,58 @@ def soft_ends(sim, state):
     return low.cpu().numpy(), (vol / float(w.rest_vol.sum())).cpu().numpy()
 
 
-def soft_body_phase(kernels) -> None:
+def xpbd_kernel_check(kernels, sim, state) -> dict:
+    """csrc/xpbd.cu against its plain version _substep_torch on one substep
+    of `sim` from `state`, at XPBD_TOL; one launch a substep; its device
+    time a substep by CUDA-graph replay beside its operations bound
+    (portbench/harness/xpbd_bound.py) and the plain version's. Returns its
+    entry of the {"kernels": ...} line."""
+    from portbench.harness.xpbd_bound import xpbd_bound
+    from test_isaacgym_tpu_torch.physics import soft
+
+    for line in kernels.build_logs.get("xpbd", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log("  ptxas:", line.strip())
+    stp, w = sim.stepper, sim.scene.soft
+    sf = stp.soft
+    args = (state.soft_pos, state.soft_vel, state.body_pos, state.body_quat, sim.params, stp.h,
+            sim.params.gravity)
+    kernels.launches.clear()
+    got = sf.substep(*args)
+    if dict(kernels.launches) != {"xpbd": 1}:
+        raise RuntimeError(f"one soft substep made these launches: {dict(kernels.launches)}")
+    want = sf._substep_torch(*args)
+    torch.cuda.synchronize()
+    scale = float(want[0].abs().max())
+    err_pos = float((got[0] - want[0]).abs().max())
+    err_vel = float((got[1] - want[1]).abs().max())
+    N, V, T, M = state.soft_pos.shape[0], w.num_verts, w.num_tets, len(w.col_kind)
+    log(f"xpbd kernel vs plain, {N} envs {XPBD_CHECK_STEP} steps in, one substep of {sf.iters} "
+        f"iterations: max |err| {err_pos:.3e} m in positions, {err_vel:.3e} m/s in velocities "
+        f"({err_vel * stp.h:.3e} m a substep); of the largest position {scale:.4g} m: "
+        f"{err_pos / scale:.3e}, {err_vel * stp.h / scale:.3e}")
+    if max(err_pos, err_vel * stp.h) > XPBD_TOL * scale:
+        raise RuntimeError(f"the xpbd kernel disagrees with plain beyond {XPBD_TOL}")
+    lib = soft._library()
+    log(f"xpbd: {lib.xpbd_threads(T)} threads and {soft.xpbd_shared_bytes(V, T, M)} bytes of "
+        f"shared memory a block, {lib.xpbd_blocks_per_sm(V, T, M)} blocks an SM")
+    bound_ms, bound_by = xpbd_bound(N, V, T, M, sf.iters, 1)
+    kernel_ms = graph_ms(lambda: sf.substep(*args), reps=20)
+    plain_ms = graph_ms(lambda: sf._substep_torch(*args), reps=3)
+    log(f"xpbd {N} envs x {T} tets x {sf.iters} iterations: kernel {kernel_ms:.5f} ms a substep "
+        f"(materials' eager ops included), plain {plain_ms:.4f} ms a substep (device, CUDA-graph "
+        f"replay), bound {bound_ms:.6f} ms ({bound_by}): {100 * bound_ms / kernel_ms:.3f}% of it")
+    return {"name": "xpbd", "route": "cuda", "source": "test_isaacgym_tpu_torch/csrc/xpbd.cu",
+            "replaces": None, "max_abs_err": max(err_pos, err_vel * stp.h), "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def soft_body_phase(kernels) -> dict:
     """examples/soft_body.py at SOFT_ENVS envs: a step with host syncs made
     errors, SOFT_STEPS timed steps with the kernels' counts read around
-    them (the sphere-world count must stay 0), every env's lowest vertex and
+    them (the sphere-world count must stay 0, 3 xpbd launches a step), the
+    xpbd kernel against its plain version (xpbd_kernel_check, whose entry
+    of the {"kernels": ...} line it returns), every env's lowest vertex and
     volume ratio against their bounds and the JAX package's 1024 envs,
     tet_stress and tri_normals, two SOFT_REPEAT_STEPS runs bitwise equal, a
     profile, the soft layers' ops and host ms, a TIG_DEBUG step at 4 envs,
@@ -1534,6 +1594,7 @@ def soft_body_phase(kernels) -> None:
                                  SOFT_ENVS, "env")
     expect_launches(launches, name, "soft_body", SOFT_STEPS)
     assert_finite(s, name)
+    xpbd_entry = xpbd_kernel_check(kernels, sim, run(s0, XPBD_CHECK_STEP))
 
     golden = np.load(port_data("soft_body_standin.npz"))
     if int(golden["big_envs"]) != SOFT_ENVS or int(golden["big_steps"]) != SOFT_STEPS:
@@ -1612,6 +1673,7 @@ def soft_body_phase(kernels) -> None:
             f"{len(g['soft_pos']) - 1}): max |err| of largest magnitude {worst:.3e}")
         if worst > GOLDEN_TOL:
             raise RuntimeError(f"{name} departs from {path}: {worst:.3e} > {GOLDEN_TOL}")
+    return xpbd_entry
 
 
 def ant_stats(obs, reset):
@@ -2619,7 +2681,7 @@ def main() -> int:
 
     # ---- 10. soft bodies: the XPBD tet solve of examples/soft_body.py,
     # with its own counts ----
-    phase_timed(soft_body_phase, _kernels)
+    xpbd_entry = phase_timed(soft_body_phase, _kernels)
 
     # ---- 11. the RL vec-envs and the renderer: the Ant and the Franka
     # reach through make(), each with its own counts; bench.py's render
@@ -2648,6 +2710,7 @@ def main() -> int:
     log("sphere_world launches by main path: "
         + ", ".join(f"{k} {v}" for k, v in PATH_LAUNCHES.items()))
     log("fk launches by main path: " + ", ".join(f"{k} {v}" for k, v in PATH_FK.items()))
+    log("xpbd launches by main path: " + ", ".join(f"{k} {v}" for k, v in PATH_XPBD.items()))
     log(json.dumps({"kernels": [{
         "name": "sphere_world",
         "route": "cuda",
@@ -2661,7 +2724,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, dict(fk_entry, launches=sum(PATH_FK.values()))]}))
+    }, dict(fk_entry, launches=sum(PATH_FK.values())),
+        dict(xpbd_entry, launches=sum(PATH_XPBD.values()))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

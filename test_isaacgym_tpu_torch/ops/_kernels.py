@@ -28,6 +28,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# flags of one kernel beside NVCC_FLAGS: xpbd.cu follows the plain version's
+# arithmetic operation by operation, so no multiply and add may be fused
+KERNEL_FLAGS = {"xpbd": ("-fmad=false",)}
+
 launches: collections.Counter = collections.Counter()
 build_logs: dict = {}  # kernel name -> nvcc/ptxas report of its last build
 _libs: dict = {}
@@ -49,7 +53,8 @@ def build(name: str) -> pathlib.Path:
     """Compile csrc/<name>.cu unless a library of the same source and flags
     exists; returns the library's path."""
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{key}.so"
     if out.exists():
         return out
@@ -58,7 +63,7 @@ def build(name: str) -> pathlib.Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [_nvcc(), *flags, "-o", tmp, str(src)],
             capture_output=True, text=True, check=False,
         )
         build_logs[name] = proc.stdout + proc.stderr

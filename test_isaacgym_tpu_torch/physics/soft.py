@@ -8,7 +8,12 @@ examples/soft_body.py, assets/urdf/icosphere.urdf). Here:
   * state is two tensors soft_pos/soft_vel (N, Vt, 3) in SimState, batched
     over envs like everything else;
   * each substep runs `flex.num_outer_iterations x num_inner_iterations`
-    Jacobi XPBD iterations, a Python loop of eager ops with no host sync;
+    Jacobi XPBD iterations. `SoftStepper.substep` has two implementations,
+    picked by the tensors' device alone: CUDA tensors launch the hand-written
+    kernel csrc/xpbd.cu (the prediction, every iteration, the friction and
+    the damping of every env in one launch, at most XPBD_MAX_SHARED_BYTES of
+    shared memory an env), CPU tensors take `_substep_torch`, a Python loop
+    of eager ops with no host sync and the kernel's reference;
   * per-tet constraints follow the stable Neo-Hookean XPBD formulation
     (deviatoric C_D = ||F||_F and hydrostatic C_H = det(F) - 1 - mu/lambda,
     compliances 1/(mu V) and 1/(lambda V)), Young's/Poisson mapped to
@@ -26,6 +31,7 @@ build; `SoftStepper` puts every index, mass and constant on the device once.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import List, NamedTuple, Optional
 
@@ -33,7 +39,13 @@ import numpy as np
 import torch
 
 from ..math.quat import cross, quat_mul, quat_rotate, quat_rotate_inverse
+from ..ops import _kernels
 from ..utils.trace import span
+
+# shared memory a block of csrc/xpbd.cu may take, which holds one env's
+# whole iteration state (`xpbd_shared_bytes`): the H100's opt-in maximum a
+# block, 227 KB. The pedestals scene's three icospheres take 205,660 bytes.
+XPBD_MAX_SHARED_BYTES = 232448
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +329,30 @@ def incidence(tets: np.ndarray, num_verts: int, copies: int = 1) -> np.ndarray:
     return out
 
 
+def xpbd_shared_bytes(num_verts: int, num_tets: int, num_colliders: int) -> int:
+    """Shared memory a block of csrc/xpbd.cu takes (its xpbd_shared_bytes):
+    positions 3V, both multipliers, both compliances and gamma 5T, every
+    (constraint, corner) correction 24T, each collider's pose and size 10M
+    floats."""
+    return 4 * (3 * num_verts + 29 * num_tets + 10 * num_colliders)
+
+
+class XpbdTables(NamedTuple):
+    """The per-mesh tables csrc/xpbd.cu reads, which every env shares."""
+
+    tets: torch.Tensor  # (T, 4) int32
+    inv_dm: torch.Tensor  # (T, 9) f32: Dm^-1 row-major
+    w4: torch.Tensor  # (T, 4) f32: the corners' inverse masses
+    jac: torch.Tensor  # (T,) f32: the relaxed Jacobi scale
+    inc_start: torch.Tensor  # (V + 1,) int32: each vertex's entries in inc_slot
+    inc_slot: torch.Tensor  # (4T,) int32: k * 3T + t of each (tet t, corner k), by (k, t)
+    vert_order: torch.Tensor  # (V,) int32: the vertices by descending valence
+    vert_inst: torch.Tensor  # (V,) int32: the instance of the vertex's tets, -1 for none
+    col: torch.Tensor  # (M, 3) int32: body slot, shape slot, SHAPE_* kind
+    col_quat: torch.Tensor  # (M, 4) f32: the shape's rotation in its body
+    planes: torch.Tensor  # (M, F, 8) f32: a hull's [n, d, margin |n|, |n|^2 clipped, 0, 0]
+
+
 # ---------------------------------------------------------------------------
 # the XPBD substep
 # ---------------------------------------------------------------------------
@@ -379,6 +415,7 @@ class SoftStepper:
             self.plane_d = float(scene.ground.distance)
             self.friction = float(scene.ground.static_friction)
         self.plane_n = f32(n)
+        self.plane_n_host = tuple(float(c) for c in np.asarray(n, np.float32))
         self.margin = float(world.thickness)
 
         w = world
@@ -396,7 +433,8 @@ class SoftStepper:
         # hydrostatic contributions (N, 2*4*T + 1, 3); each tet's damping
         # repeated on its corners (N, 4*T + 1)
         self.gather_dx = index(incidence(w.tets, V, copies=2).reshape(-1))
-        self.gather_corner = index(incidence(w.tets, V, copies=1))
+        corner_incidence = incidence(w.tets, V, copies=1)
+        self.gather_corner = index(corner_incidence)
         self.tris = index(w.tris)
         self.axes = torch.arange(3, device=dev)
         # colliders: constants and shape rotations on the device
@@ -407,6 +445,45 @@ class SoftStepper:
             _Collider(mi, int(k), w.col_planes[mi], self.margin, dev)
             for mi, k in enumerate(w.col_kind)
         ]
+        self.xpbd = self._xpbd_tables(corner_incidence)
+
+    def _xpbd_tables(self, corner_incidence: np.ndarray) -> XpbdTables:
+        """csrc/xpbd.cu's tables from this stepper's own constants: each
+        vertex's (tet, corner) contributions in the order of the plain
+        version's gather (`incidence`), kept once for both constraints."""
+        w, dev = self.world, self.device
+        T, V = w.num_tets, w.num_verts
+        live = corner_incidence < 4 * T
+        slots = (corner_incidence % 4) * 3 * T + corner_incidence // 4
+        counts = live.sum(1)
+        vert_inst = np.full(V, -1, np.int64)
+        for k in range(4):
+            vert_inst[w.tets[:, k]] = w.inst_of_tet
+        planes = torch.zeros((len(self.colliders), w.col_planes.shape[1], 8),
+                             dtype=torch.float32, device=dev)
+        for c in self.colliders:
+            if c.kind == 3:
+                planes[c.mi, :, :3] = c.n_t.T
+                planes[c.mi, :, 3] = c.d
+                planes[c.mi, :, 4] = c.margin_n
+                planes[c.mi, :, 5] = c.rows[:, 3]
+
+        def i32(a):
+            return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+        return XpbdTables(
+            tets=i32(w.tets),
+            inv_dm=self.inv_dm.reshape(T, 9).contiguous(),
+            w4=self.w4[..., 0].contiguous(),
+            jac=self.jac_scale.contiguous(),
+            inc_start=i32(np.concatenate([[0], np.cumsum(counts)])),
+            inc_slot=i32(slots[live]),
+            vert_order=i32(np.argsort(-counts, kind="stable")),
+            vert_inst=i32(vert_inst),
+            col=i32(np.stack([w.col_body, w.col_shape, w.col_kind], -1).reshape(-1, 3)),
+            col_quat=self.col_quat.reshape(-1, 4).contiguous(),
+            planes=planes,
+        )
 
     # ------------------------------------------------------------------
     def materials(self, params, h):
@@ -444,7 +521,15 @@ class SoftStepper:
         return p, _Consts(alpha_d, alpha_h, gamma, zero_row, colliders), lam, lam
 
     def substep(self, soft_pos, soft_vel, body_pos, body_quat, params, h, gravity):
-        """One XPBD substep: returns (pos', vel')."""
+        """One XPBD substep: returns (pos', vel'). CPU tensors take the plain
+        version; CUDA tensors launch csrc/xpbd.cu."""
+        args = (soft_pos, soft_vel, body_pos, body_quat, params, h, gravity)
+        if soft_pos.device.type == "cpu":
+            return self._substep_torch(*args)
+        return self._substep_cuda(*args)
+
+    def _substep_torch(self, soft_pos, soft_vel, body_pos, body_quat, params, h, gravity):
+        """`substep`'s plain version: the loop of `iterate` in eager ops."""
         N, T = soft_pos.shape[0], self.world.num_tets
         p, consts, lam_d, lam_h = self.prepare(soft_pos, soft_vel, body_pos, body_quat,
                                                params, h, gravity)
@@ -475,6 +560,63 @@ class SoftStepper:
         damp_v = torch.clamp(corners[:, self.gather_corner].amax(-1), min=0.0)
         v_new = v_new * torch.clamp(1.0 - damp_v[..., None], 0.0, 1.0)
         return p, v_new
+
+    def _substep_cuda(self, soft_pos, soft_vel, body_pos, body_quat, params, h, gravity):
+        """One launch of csrc/xpbd.cu on the current stream for float32 CUDA
+        tensors; raises on anything else. The compliances come from
+        `materials`, in eager ops, as in the plain version."""
+        w, x = self.world, self.xpbd
+        V, T, M = w.num_verts, w.num_tets, len(self.colliders)
+        need = xpbd_shared_bytes(V, T, M)
+        if need > XPBD_MAX_SHARED_BYTES:
+            raise ValueError(
+                f"xpbd kernel: {V} vertices, {T} tets and {M} colliders an env need {need} "
+                f"bytes of shared memory, more than its XPBD_MAX_SHARED_BYTES = "
+                f"{XPBD_MAX_SHARED_BYTES}")
+        dev, N = soft_pos.device, soft_pos.shape[0]
+        alpha_d, alpha_h, gamma = self.materials(params, h)
+        I = params.soft_damping.shape[-1]
+        B, S = body_pos.shape[1], params.shape_pos.shape[1]
+        inputs = (
+            ("soft_pos", soft_pos, (N, V, 3)), ("soft_vel", soft_vel, (N, V, 3)),
+            ("body_pos", body_pos, (N, B, 3)), ("body_quat", body_quat, (N, B, 4)),
+            ("shape_pos", params.shape_pos, (N, S, 3)), ("shape_size", params.shape_size, (N, S, 3)),
+            ("soft_damping", params.soft_damping, (N, I)), ("gravity", gravity, (3,)),
+            ("alpha_d", alpha_d, (N, T)), ("alpha_h", alpha_h, (N, T)), ("gamma", gamma, (N, T)),
+        )
+        for name, t, shape in inputs:
+            if t.device != dev or dev.type != "cuda" or t.dtype != torch.float32:
+                raise ValueError(f"xpbd kernel: {name} must be float32 on one CUDA device, "
+                                 f"got {t.dtype} on {t.device}")
+            if tuple(t.shape) != shape:
+                raise ValueError(f"xpbd kernel: {name} must be {shape}, got {tuple(t.shape)}")
+            if t.requires_grad:
+                raise ValueError(f"xpbd kernel: {name} requires grad; the kernel has no backward")
+        if x.tets.device != dev:
+            raise ValueError(f"xpbd kernel: the mesh's tables lie on {x.tets.device}, not {dev}")
+        a = {name: t.contiguous() for name, t, _ in inputs}  # alive until the launch is queued
+        out_pos, out_vel = torch.empty((2, N, V, 3), dtype=torch.float32, device=dev).unbind(0)
+        if N == 0:  # no env: nothing to launch
+            return out_pos, out_vel
+        lib = _library()
+        nx, ny, nz = self.plane_n_host
+        with span("soft.iterations"):
+            # the library launches on the current device: make it the tensors' one
+            with torch.cuda.device(dev):
+                err = lib.xpbd_launch(
+                    *(t.data_ptr() for t in x), V, T, M, x.planes.shape[1],
+                    *(a[k].data_ptr() for k in ("soft_pos", "soft_vel", "alpha_d", "alpha_h",
+                                                "gamma", "soft_damping")), I,
+                    a["body_pos"].data_ptr(), a["body_quat"].data_ptr(), B,
+                    a["shape_pos"].data_ptr(), a["shape_size"].data_ptr(), S,
+                    a["gravity"].data_ptr(), out_pos.data_ptr(), out_vel.data_ptr(), N,
+                    self.iters, int(self.has_ground), h, nx, ny, nz, self.plane_d, self.margin,
+                    self.friction, torch.cuda.current_stream(dev).cuda_stream,
+                )
+        if err != 0:
+            raise RuntimeError(f"xpbd kernel launch failed: CUDA error {err}")
+        _kernels.launches["xpbd"] += 1
+        return out_pos, out_vel
 
     def iterate(self, p, lam_d, lam_h, c: _Consts):
         """One Jacobi XPBD iteration: both tet constraints from the same
@@ -599,6 +741,34 @@ class SoftStepper:
         a, b, c = soft_pos[:, t[:, 0]], soft_pos[:, t[:, 1]], soft_pos[:, t[:, 2]]
         n = cross(b - a, c - a)
         return n / torch.clamp(_norm(n, keepdim=True), min=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the hand-written kernel's library (csrc/xpbd.cu)
+# ---------------------------------------------------------------------------
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = (
+    [_P] * 11 + [_I] * 4  # the mesh's tables, V T M F
+    + [_P] * 6 + [_I]  # soft_pos soft_vel alpha_d alpha_h gamma damping, I
+    + [_P] * 2 + [_I] + [_P] * 2 + [_I]  # body_pos body_quat B shape_pos shape_size S
+    + [_P] * 3 + [_I] * 3  # gravity pos_out vel_out, N iters has_ground
+    + [_F] * 7 + [_P]  # h nx ny nz plane_d margin friction, stream
+)
+
+
+def _library():
+    lib = _kernels.load("xpbd")
+    if lib.xpbd_launch.argtypes is None:
+        lib.xpbd_launch.argtypes = _ARGTYPES
+        lib.xpbd_launch.restype = ctypes.c_int
+        for fn, args in ((lib.xpbd_shared_bytes, [_I] * 3), (lib.xpbd_threads, [_I]),
+                         (lib.xpbd_blocks_per_sm, [_I] * 3)):
+            fn.argtypes = args
+        lib.xpbd_shared_bytes.restype = ctypes.c_longlong
+        lib.xpbd_threads.restype = lib.xpbd_blocks_per_sm.restype = ctypes.c_int
+        if lib.xpbd_shared_bytes(195, 570, 1) != xpbd_shared_bytes(195, 570, 1):
+            raise RuntimeError("csrc/xpbd.cu's shared-memory layout differs from xpbd_shared_bytes")
+    return lib
 
 
 def _norm(x, keepdim=False):

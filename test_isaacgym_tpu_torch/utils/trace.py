@@ -27,9 +27,10 @@ Spans, nested as the calls are:
     sim.soft               the XPBD soft solve after each rigid substep
                            (physics/soft.py SoftStepper.substep): 3 a step
                            with 3 substeps
-      soft.iterations      SoftStepper.substep's loop of its iterations
-                           (flex outer x inner), between the prediction and
-                           the friction and damping
+      soft.iterations      SoftStepper.substep's iterations (flex outer x
+                           inner): the launch of csrc/xpbd.cu on the card,
+                           which does the prediction, friction and damping
+                           too; the loop between them on the CPU
     sim.refresh            Stepper.refresh_body_state: the body-cache refresh
   fk                       physics/kinematics.py fk, wherever it is called
   crba                     physics/dynamics.py crba: the mass matrix

@@ -66,6 +66,8 @@ from test_isaacgym_tpu_torch.envs import soft_body as sb  # noqa: E402
 from test_isaacgym_tpu_torch.physics import soft  # noqa: E402
 from test_torch_contacts import rolled_scan  # noqa: E402
 from test_torch_kinematics import close  # noqa: E402
+from test_torch_soft_kernel import (SUBSTEP_ITERS, alone, deformed_state,  # noqa: E402
+                                    substep_inputs)
 
 torch.set_num_threads(1)
 
@@ -81,7 +83,6 @@ GOLDEN_ENVS = 4
 # ball, which starts 0.45 m into it, up against the plate at once)
 DROP_YOUNGS = (3e4, 6e5)
 PRESS_HEIGHT, PRESS_DOWN = 1.05, 10
-SUBSTEP_ITERS = 8  # the substep tests' iteration budget (the scenes' is 80)
 # soft_body1024 on the card, and the 4-env agreement run
 BIG_ENVS, BIG_STEPS, CHUNK = 1024, 120, 64
 # the same envs op by op: an op costs about the same at 64 and 1024 envs on
@@ -226,66 +227,17 @@ def pedestals():
     return jax_pedestals(), sb.pedestals_sim(device="cpu")
 
 
-def _alone(world, m):
-    """The world with collider m alone (m None: no collider)."""
-    keep = slice(0, 0) if m is None else slice(m, m + 1)
-    return dataclasses.replace(world, col_shape=world.col_shape[keep],
-                               col_body=world.col_body[keep], col_kind=world.col_kind[keep],
-                               col_planes=world.col_planes[keep])
-
-
-def _deformed_state(jsim, centre, seed):
-    """soft_pos: every instance's rest ball shrunk to 0.8, centred on
-    `centre` and jittered by 0.05 m; soft_vel random (N(0, 0.5))."""
-    w = jsim.scene.soft
-    rng = np.random.RandomState(seed)
-    pos = np.empty((1, w.num_verts, 3), np.float32)
-    for inst in w.instances:
-        v = w.verts0[inst.vert_start:inst.vert_start + inst.vert_count]
-        pos[0, inst.vert_start:inst.vert_start + inst.vert_count] = (
-            0.8 * (v - v.mean(0)) + centre)
-    pos += rng.normal(0, 0.05, pos.shape).astype(np.float32)
-    return pos, rng.normal(0, 0.5, pos.shape).astype(np.float32)
-
-
-def _box_tie(pos, cp, half):
-    """Move vertex 0 to where the box's |rel| - half ties exactly in x and z
-    and is the largest (inside): argmax takes the first."""
-    z = np.float32(cp[2] + 0.9)
-    qz = np.abs(z - cp[2]) - half[2]
-    for x in (np.float32(cp[0] + qz + half[0]), np.float32(cp[0] - qz - half[0])):
-        if np.abs(x - cp[0]) - half[0] == qz:
-            pos[0, 0] = (x, cp[1], z)
-            q = np.abs(pos[0, 0] - cp) - half
-            assert q[0] == q[2] == q.max() < 0, q
-            return pos
-    raise AssertionError("no exact tie found")
-
-
 @pytest.mark.parametrize("collider", ["ground", "sphere", "capsule", "hull", "box"])
 def test_substep_matches_jax(pedestals, collider):
     jsim, sim = pedestals
     jw = jsim.scene.soft
-    m = None if collider == "ground" else int(np.nonzero(
-        jw.col_kind == {"sphere": 0, "capsule": 2, "hull": 3, "box": 1}[collider])[0][0])
-    world = _alone(jw, m)
+    bp, bq = np.array(jsim.state.body_pos), np.array(jsim.state.body_quat)
+    world, pos, vel = substep_inputs(jw, bp, np.asarray(jsim.params.shape_pos),
+                                     np.asarray(jsim.params.shape_size), collider)
     js = jsoft.SoftStepper(world, jsim.scene)
     ts = soft.SoftStepper(world, sim.scene, "cpu")
     js.iters = ts.iters = SUBSTEP_ITERS
     js.has_ground = ts.has_ground = collider == "ground"
-    bp, bq = np.array(jsim.state.body_pos), np.array(jsim.state.body_quat)
-    if m is None:
-        centre = np.array([0.0, 0.0, 0.55], np.float32)  # straddling the ground's margin
-    else:
-        body, shape = int(world.col_body[0]), int(world.col_shape[0])
-        centre = bp[0, body] + np.asarray(jsim.params.shape_pos)[0, shape]
-        centre = (centre + [0.0, 0.0, 0.6]).astype(np.float32)  # over the collider's top
-    pos, vel = _deformed_state(jsim, centre, seed=len(collider))
-    if collider == "box":
-        cp = (bp[0, int(world.col_body[0])]
-              + np.asarray(jsim.params.shape_pos)[0, int(world.col_shape[0])]).astype(np.float32)
-        half = np.asarray(jsim.params.shape_size)[0, int(world.col_shape[0])] + np.float32(world.thickness)
-        pos = _box_tie(pos, cp, half.astype(np.float32))
     h = sim.stepper.h
     with jax.disable_jit():
         want = js.substep(jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(bp), jnp.asarray(bq),
@@ -297,7 +249,7 @@ def test_substep_matches_jax(pedestals, collider):
         err = float(np.abs(a.numpy() - np.asarray(b)).max())
         assert err <= FN_TOL * scale, f"{collider} {name}: {err:.3e} > {FN_TOL} * {scale:.3g}"
     # the collider acted: without it the substep ends elsewhere
-    bare = soft.SoftStepper(_alone(jw, None), sim.scene, "cpu")
+    bare = soft.SoftStepper(alone(jw, None), sim.scene, "cpu")
     bare.iters, bare.has_ground = SUBSTEP_ITERS, False
     free = bare.substep(torch.as_tensor(pos), torch.as_tensor(vel), torch.as_tensor(bp),
                         torch.as_tensor(bq), sim.params, h, sim.params.gravity)
@@ -306,7 +258,7 @@ def test_substep_matches_jax(pedestals, collider):
 
 def test_stress_normals_and_det_match_jax(pedestals):
     jsim, sim = pedestals
-    pos, _ = _deformed_state(jsim, np.array([0.0, 0.0, 3.0], np.float32), seed=5)
+    pos, _ = deformed_state(jsim.scene.soft, np.array([0.0, 0.0, 3.0], np.float32), seed=5)
     js, ts = jsim.stepper.soft, sim.stepper.soft
     want = np.asarray(jax.jit(js.tet_stress)(jnp.asarray(pos), jsim.params))
     got = ts.tet_stress(torch.as_tensor(pos), sim.params).numpy()
