@@ -1,131 +1,47 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU.
+"""Checks of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card (random worlds, the
-piled 1080-ball state, and a dense 1080-sphere cube whose contact lists
-spill out of shared memory), shows that two solves of the same inputs give
-the same bits, drives the 1080-ball sphere world (envs/balls.py, 36
-pyramids) through its entry points with the kernels' launch counts read
-around that run alone, profiles 20 of its steps, runs the 120-ball drop
-against tests/goldens/balls_drop.npz, then holds the forward-kinematics
-kernel (csrc/fk.cu) against its plain version at the Franka path's shape,
-one launch a call, two launches bitwise equal, its time by CUDA-graph replay
-beside its byte bound, then drives the flagship Franka OSC
-path (envs/franka.py, 4096 envs of the mesh-free Panda stand-in, plain
-PyTorch ops and the fk kernel: its counts are read around its own run, 2 fk
-launches a step and no other), profiles 3 of its steps, checks an 8-env run against
-the stand-in golden, then drives the franka_cube pick path (envs/franka_cube.py,
-4096 envs of the stand-in with collision boxes on the hand and fingers, OSC,
-the contact table's narrowphase and two-way Jacobi solve: plain PyTorch and
-the fk kernel, its sphere-world count must stay 0), runs one of its steps with host syncs made
-errors, times its layers, profiles 3 of its steps, checks a 4-env run of
-each controller against franka_cube_standin.npz, reports its grip and lift
-shares beside the JAX env's; then the paths with no kernel of their own
-but fk, each with its counts read around its run: 4096 attractor-driven Pandas
-(examples/franka_attractor.py's moving target), the 4096-env UAV-car
-pursuit (and 16 envs against tests/goldens/uav_car.npz), 1080 boxes on the
-neighbor-list solve (sphere-world count 0), and 100 spheres beside 100
-boxes, where the sphere-world kernel runs beside that solve (its launches
-counted exactly, the kernel held against its plain version on that world);
-then the TIG_DEBUG checks (a planted NaN raises, verify_step_purity on the
-balls, Franka OSC and franka_cube steps); last the convex-hull and terrain
-paths, each with its counts read around its run: kuka_bin.py's five objects
-(a cube, two convex hulls made by create_mesh_asset, a sphere, a capsule)
-in each of 4096 envs on a ground plane (hull_pile4096) and over the 1200 x
-2000 AnymalTerrain heightfield (terrain4096), no kernel (sphere-world count
-0), each held to an 8-env golden made by the JAX package; and the 1080 balls
-over a terrain bowl (balls_terrain1080), where the sphere-world kernel runs
-without its ground beside 1080 sphere-terrain rows of the contact table
-(launches counted exactly, the kernel held against its plain version on
-that world's piled inputs); then the SDF paths, each with its counts read
-around its run (the sphere-world count must stay 0): bench.py's nut_bolt
-config, 1024 envs of a nut spun down the procedural bolt for 240 steps
-(envs/nut_bolt.py, the code-built nut stand-in's probes against the bolt's
-closed form; every env's descent held to test_nut_threads_down's bar,
-a 2-env run to nut_bolt_standin.npz, a TIG_DEBUG step), and the reference
-example's 512 envs of the arm-driven screw FSM from the nut threaded on the
-bolt (envs/franka_nut_bolt.py: both SDF families, the trilinear lookup of
-the nut's voxel grid at full width; its FSM shares and mean nut descent
-held to the JAX env's at 512 envs, both starts at 2 envs to
-franka_nut_bolt_standin.npz); last the soft-body path, with its counts read
-around its run (the sphere-world count must stay 0): the reference's
-examples/soft_body.py at 1024 envs for 120 steps (envs/soft_body.py, the
-code-built tet icosphere stand-in on the XPBD solve, a press plate held
-over it; 3 launches a step of the XPBD kernel, csrc/xpbd.cu), the kernel
-against its plain version on one substep of the 1024 envs mid-impact and
-its device time by CUDA-graph replay beside its operations bound and the
-plain version's, every env's lowest vertex and volume ratio against the example's
-and tests/test_soft.py's bounds and their spread against the JAX package's
-1024 envs, two 4-step runs bitwise equal, a TIG_DEBUG step, and 4 envs
-and the pedestal scene (sphere, capsule and hull colliders) against
-soft_body_standin.npz and soft_pedestals_standin.npz; last the RL
-vec-env surface and the renderer (envs/rl_env.py, render/raster.py,
-render/camera.py), each with its counts read around its run (the
-sphere-world count must stay 0): make(task="Ant") at 4096 envs on the
-code-written Ant stand-in for 200 steps of RandomState(0) actions (a step
-with host syncs made errors; the envs still in the scene finite and in
-their joint limits; the share of envs that reset, the share thrown out of
-the scene and the others' mean torso height against the JAX package's
-4096 envs; 4 envs to ant_standin.npz's horizon; render() of env 0 against
-the JAX frame), make(task="Franka") at 4096 envs for 60 steps (8 envs to
-franka_reach_standin.npz), bench.py's render config at 1600 x 900 on one
-env of the FrankaNutBoltEnv scene (its triangle and hull passes; 160 x 90
-against render_standin.npz), and a 64 x 48 CameraSensor on each of the
-4096 Ant envs for 10 domain-randomized frames, two runs bitwise equal; last
-the gymapi facade (gymapi/facade.py, envs/gym_scenes.py) driven as the
-reference's scripts drive it, each path with its counts read around its
-run and a step (simulate, refresh_*, set_*) with host syncs made errors:
-1080_balls_of_solitude.py --all_collisions as gym calls (one create_env, a
-create_actor a ball), 400 steps of simulate + refresh_actor_root_state_tensor
-through the sphere-world kernel (exactly 800 launches), balls1080's bounds
-read from the wrapped tensors, whose storage the refreshes keep, the KEY_R
-snapshot reset bit for bit, and 120 balls against gym_balls_standin.npz;
-examples/franka_osc.py's build and loop at 4096 envs on the Panda stand-in
-(the rigid-body, DOF, Jacobian and mass-matrix tensors wrapped, the OSC on
-the card, 300 steps), its mean tracking error under the example's 0.12 m
-and within 10% of the JAX facade's, the native FrankaOscEnv's ms/step
-beside it, and 8 envs against gym_franka_osc_standin.npz; and
-examples/interop_torch.py's scene at 1024 envs (a ball and a 128 x 128
-camera with enable_tensors in each), 30 frames of simulate, render and the
-image tensor on the card (its data_address its data_ptr), two runs bitwise
-equal, env 0's frame against gym_interop_standin.npz; last env-axis
-sharding (parallel/mesh.py) at world size 1 over NCCL, joined in this
-process on a free localhost port: bench.py's _bench_sharded config, the
-full Franka OSC step at 1024 envs through rollout_with_obs for 20 steps,
-its gathered dof_pos against the native FrankaOscEnv rollout and the
-gather's share of a step, and 4 worlds of 1080 balls for 40 steps through
-the sphere-world kernel (launches counted exactly) held to the unsharded
-run, the contact force summed by psum_metrics; last the repository's
-example scripts, unchanged, through the port's runner
-(test_isaacgym_tpu_torch/run_example.py), each in its own process on the
-card (the EXAMPLES table: 11 scripts, large_mass_ratio cut to 50 steps),
-each held to the JAX package's CPU run of the same argv in
-examples_jax.json by tests/test_torch_examples_physics.py's rule, or
-stopping where the table states with every line before the stop the JAX
-run's, every sim on the card, graphics_camera's image written by its own
-run. Every path's counted run is held to exact counts of each kernel: its
-sphere-world launches, FK_PER_STEP fk launches a step (2 on the
-articulated paths with two substeps, 0 where there is no articulation) and
-XPBD_PER_STEP xpbd launches a step (one a substep of a soft scene). It
-prints:
-  * the card's name and power limit (nvidia-smi);
-  * per-phase numbers (build seconds, kernel and plain times, each launch's
-    share of a solve and one sweep's cost, ball-steps/s, Franka env-steps/s
-    and ms/step, device busy share, device launches per step and the
-    kernels that take the most device time). A kernel's time is its
-    device time per call, replayed from a CUDA graph; the same calls made
-    back to back from Python are also shown, host overhead included;
-  * one JSON line {"kernels": [...]} with each kernel's launches on the
-    main path, error against its plain version, times and bound;
-  * last, {"ok": true, "device": {...}}.
-Any failed phase raises, and the script exits non-zero without the last
-line. It needs a CUDA device and imports nothing of JAX.
+Builds the port's hand-written CUDA kernels (csrc/*.cu) from this checkout
+and holds each against its plain PyTorch version on the card: the
+sphere-world solve on random worlds, the piled 1080-ball state and a dense
+1080-sphere cube whose contact lists spill out of shared memory; the forward
+kinematics (csrc/fk.cu) at the Franka path's shape; one XPBD substep
+(csrc/xpbd.cu) of the soft_body scene mid-impact. Two launches on the same
+inputs must give the same bits. Each kernel's device time a call, replayed
+from a CUDA graph, is printed beside its bound and its plain version's time:
+the one measurement here, the source of the kernel table in PERF.md.
+
+Then it drives every path of the port on the card through its entry points,
+and holds each to its checks: the 1080 balls and the 120-ball drop golden;
+the Franka OSC flagship and its tracking bound; franka_cube's grip and lift
+shares; the attractor, the UAV-car pursuit, the neighbor-list box worlds
+(the mixed one beside the sphere-world kernel), the TIG_DEBUG checks; the
+convex-hull and terrain piles and the balls over a bowl; the SDF paths
+(nut_bolt, franka_nut_bolt); the soft body; the RL vec-envs and the
+renderer; the gymapi facade as the reference's scripts drive it; env-axis
+sharding at world size 1 over NCCL; and the repository's example scripts,
+unchanged, each in its own process. A path's checks are the ones its
+function's docstring names: goldens made by the JAX package on the CPU,
+finiteness, joint limits, bounds and shares against the JAX package's,
+a step with host syncs made errors, bitwise repeats, TIG_DEBUG purity.
+Each path's counted run is held to exact launch counts of every kernel,
+EXPECTED_LAUNCHES a step of that path.
+
+End-to-end and per-layer numbers of the paths are the benchmark's
+(portbench/, one cell a configuration); nothing here times a path. It
+prints the card's name and power limit, each check's numbers, one JSON line
+{"kernels": [...]} with each kernel's launches over the paths, error
+against its plain version, time, plain time and bound, and last
+{"ok": true, "device": {...}}. Any failed check raises, and the script
+exits non-zero without the last line. It needs a CUDA device and imports
+nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
 import json
 import os
 import subprocess
@@ -137,32 +53,15 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# H100 SXM data sheet (dense, 700 W): f32 outside the tensor cores, HBM3
-PEAK_F32_OPS = 67e12
-PEAK_BYTES = 3.35e12
-# f32 operations of one sphere-world solve, per unit of work its data needs
-# (sqrt and division count as one): the distance test of every candidate
-# pair, once; the per-pair setup of each active pair (normal, material mix,
-# effective masses, pre-solve normal velocity, target), once; the update of
-# each active pair in each sweep (relative velocity, normal and friction
-# impulses, both bodies' sums); each sphere's split update and ground
-# contact in each sweep.
-OPS_CANDIDATE, OPS_PAIR_SETUP, OPS_PAIR_SWEEP, OPS_BODY_SWEEP = 12, 60, 100, 80
-
 SOLVE_TOL = 1e-5  # kernel vs plain, of the largest magnitude
 FK_GRAPH_CALLS = 20  # fk calls captured in the graph that times the fk kernel
-STEPS = 400  # end-to-end 1080-ball run
+STEPS = 400  # the 1080-ball run
 PILE_STEPS = 120  # steps before capturing the piled F=1080 solve inputs
-PROFILE_STEPS = 20  # main-path steps under torch.profiler
-# the host-bound paths' profiles: 3,600-16,550 launches a step, and the
-# profiler's cost grows with them (10 steps took 23-31 s a path with an
-# H100); every step launches the same kernels, so 3 give a step's breakdown
-PATH_PROFILE_STEPS = 3
 # the goldens' rule on the card: the 120-ball drop vs tests/goldens/balls_drop.npz
 # and the Franka stand-in vs its franka_osc_standin.npz
 GOLDEN_TOL = 1e-4
 FRANKA_ENVS = 4096  # the flagship's width (bench.py, BASELINE.json)
-FRANKA_STEPS = 200  # timed Franka run
+FRANKA_STEPS = 200  # the counted Franka run
 FRANKA_GOLDEN_ENVS, FRANKA_GOLDEN_EVERY = 8, 10  # franka_osc_standin.npz: steps 0, 10, ..., 50
 # Median distance of the hand from its circle target after FRANKA_STEPS
 # steps. The JAX env gives 0.045785 m on the CPU (every env tracks the same
@@ -259,9 +158,6 @@ FNB_ENVS, FNB_STEPS, FNB_SHARE_SLACK, FNB_DESCENT_RTOL = 512, 150, 0.02, 0.20
 # times closer to the op-by-op mean than the jitted mean does
 SOFT_OPBYOP_FACTOR = 10.0
 SOFT_ENVS, SOFT_STEPS, SOFT_REPEAT_STEPS = 1024, 120, 10
-# a soft step is ~26,000 launches, and the profiler's cost grows with them;
-# every step launches the same kernels, so 1 step gives a step's breakdown
-SOFT_PROFILE_STEPS = 1
 SOFT_LOWEST, SOFT_VOLUME, SOFT_BOUND_YOUNGS, SOFT_SLACK_FACTOR = (-0.05, 0.35), (0.75, 1.1), 5e4, 10.0
 # the RL vec-envs (envs/rl_env.py): make(task="Ant") at IsaacGymEnvs' Ant
 # numEnvs, ANT_STEPS steps of actions uniform in [-1, 1] from
@@ -277,7 +173,7 @@ SOFT_LOWEST, SOFT_VOLUME, SOFT_BOUND_YOUNGS, SOFT_SLACK_FACTOR = (-0.05, 0.35), 
 # difference there); render() of env 0 there against the JAX frame,
 # per-shape segmentation and colour within one count on all but
 # FRAME_SHARE of it.
-ANT_ENVS, ANT_STEPS, ANT_PROFILE_STEPS, ANT_SLACK_FACTOR = 4096, 200, 3, 10.0
+ANT_ENVS, ANT_STEPS, ANT_SLACK_FACTOR = 4096, 200, 10.0
 LEFT_HEIGHT, FRAME_SHARE = 10.0, 0.01
 # make(task="Franka"): FrankaReachVecEnv, REACH_STEPS steps; its 8-env golden
 REACH_ENVS, REACH_STEPS = 4096, 60
@@ -299,14 +195,11 @@ CAMERA_SIZE, CAMERA_FRAMES = (64, 48), 10
 # error after step 150 under the example's GYM_OSC_BOUND m and within
 # GYM_OSC_RTOL of the JAX facade's (gym_franka_osc_standin.npz: every env
 # tracks the same circle from the same pose, so the JAX facade's 8 envs give
-# the mean at any width), 8 envs against that golden, and the native
-# FrankaOscEnv's ms/step beside it (NATIVE_STEPS steps where this call has not
-# timed franka4096); examples/interop_torch.py's scene at GYM_CAMERA_ENVS
+# the mean at any width), and 8 envs against that golden; examples/interop_torch.py's scene at GYM_CAMERA_ENVS
 # envs, GYM_CAMERA_FRAMES frames of simulate, render and the image tensor, two
 # runs bitwise equal, env 0's frame against gym_interop_standin.npz
 GYM_BALL_STEPS = 400
 GYM_OSC_ENVS, GYM_OSC_STEPS, GYM_OSC_BOUND, GYM_OSC_RTOL = 4096, 300, 0.12, 0.10
-NATIVE_STEPS = 50
 GYM_CAMERA_ENVS, GYM_CAMERA_FRAMES = 1024, 30
 # env-axis sharding over torch.distributed (parallel/mesh.py), one rank a
 # card: bench.py's _bench_sharded config, the full Franka OSC step through
@@ -349,33 +242,32 @@ EXAMPLES = (  # the longest first
 EXAMPLE_WORKERS, EXAMPLE_TIMEOUT = 4, 150
 # the device of every phase's envs ("cpu" only in a rehearsal of the phases on the CPU)
 DEV = "cuda"
-# fk kernel launches (csrc/fk.cu, one a call of physics/kinematics.fk) a step
-# (a frame) of each path's counted run, by path: phase A calls fk in every
-# substep but the first, which reuses the body cache, and the refresh once a
-# step, for each articulation group (2 substeps: 2 a step; soft_body's press
-# plate, 3 substeps: 3). Paths without an articulation launch none. A path's
-# count must be this times its steps (counted on the CPU, where _fk_torch was
-# wrapped to count as the kernel does).
-FK_PER_STEP = {
-    "balls": 0, "franka": 2, "franka_cube": 2, "attractor": 2, "uav_car": 0, "box": 0,
-    "mixed": 0, "pile": 0, "balls_terrain": 0, "nut_bolt": 0, "franka_nut_bolt": 2,
-    "soft_body": 3, "ant": 2, "franka_reach": 2, "render": 0, "ant_camera": 0,
-    "gym_balls": 0, "gym_franka_osc": 2, "gym_interop": 0, "sharded_franka": 2,
-    "sharded_balls": 0,
+# Launches of each hand-written kernel a step (a frame) of each path's
+# counted run, by path; a kernel not named for a path launches none there.
+# sphere_world (csrc/sphere_world.cu): LAUNCHES_PER_SOLVE = 2 a solve, one
+# solve a substep of a world with free spheres (the mixed world has 2
+# substeps). fk (csrc/fk.cu, one a call of physics/kinematics.fk): phase A
+# calls it in every substep but the first, which reuses the body cache, and
+# the refresh once a step, for each articulation group (2 substeps: 2 a
+# step; soft_body's press plate, 3 substeps: 3). xpbd (csrc/xpbd.cu, one a
+# SoftStepper.substep): one a substep of a scene with soft bodies. A new
+# kernel adds its key to the paths that launch it.
+EXPECTED_LAUNCHES = {
+    "balls": {"sphere_world": 2}, "franka": {"fk": 2}, "franka_cube": {"fk": 2},
+    "attractor": {"fk": 2}, "uav_car": {}, "box": {}, "mixed": {"sphere_world": 4},
+    "pile": {}, "balls_terrain": {"sphere_world": 2}, "nut_bolt": {},
+    "franka_nut_bolt": {"fk": 2}, "soft_body": {"fk": 3, "xpbd": 3}, "ant": {"fk": 2},
+    "franka_reach": {"fk": 2}, "render": {}, "ant_camera": {}, "gym_balls": {"sphere_world": 2},
+    "gym_franka_osc": {"fk": 2}, "gym_interop": {}, "sharded_franka": {"fk": 2},
+    "sharded_balls": {"sphere_world": 2},
 }
-# xpbd kernel launches (csrc/xpbd.cu, one a SoftStepper.substep) a step of
-# each path's counted run: one a substep where the scene has soft bodies
-XPBD_PER_STEP = {"soft_body": 3}
 # the kernel against its plain version on one substep (tests/test_torch_soft_kernel.py's
 # KERNEL_TOL: positions, and velocities as metres a substep, of the largest position)
 XPBD_TOL = 1e-5
 # the soft substep's step into the drop where it is held to its plain version: mid-impact
 XPBD_CHECK_STEP = 20
-# sphere-world, fk and xpbd launches and ms/step of each main path's timed run, by path
+# each kernel's launches in each path's counted run (and the examples'), by path
 PATH_LAUNCHES = {}
-PATH_FK = {}
-PATH_XPBD = {}
-STEP_MS = {}
 
 
 def log(*a):
@@ -472,28 +364,6 @@ def graph_ms(fn, reps):
     return time_ms(g.replay, reps)
 
 
-def sphere_world_bound(args):
-    """(bound_ms, bound_by, active pairs) of one solve on these inputs."""
-    spec, pos, vel, omega, radius = args[:5]
-    iters, contact_offset = args[10], args[11]
-    N, F, _ = pos.shape
-    allow = torch.as_tensor(spec.allow, device=pos.device)
-    dist = torch.linalg.vector_norm(pos[:, :, None] - pos[:, None], dim=-1)
-    depth = radius[:, :, None] + radius[:, None, :] - dist
-    active = int((allow[None] & (depth > -contact_offset)).sum())
-    candidates = N * int(spec.allow.sum())
-    ops = (candidates * OPS_CANDIDATE + active * (OPS_PAIR_SETUP + iters * OPS_PAIR_SWEEP)
-           + N * F * iters * OPS_BODY_SWEEP)
-    n_in = sum(a.numel() for a in args[1:9])  # f32 inputs
-    # + the allow mask's upper triangle (the lower half is zero by
-    # construction) as one bit a pair, as the kernel reads it packed + 3 f32
-    # outputs
-    nbytes = 4 * n_in + -(-(F * (F - 1) // 2) // 8) + 4 * 3 * (3 * N * F)
-    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    log(f"sphere_world bound: {ops} operations ({t_ops:.6f} ms), {nbytes} bytes ({t_bytes:.6f} ms)")
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), active
-
-
 def check_solve(sw, args, tag):
     """Kernel vs plain on the same inputs; returns the max |err|."""
     got = sw.solve(*args)
@@ -518,118 +388,13 @@ def check_repeatable(sw, args, tag):
     log(f"bitwise repeatable {tag}: yes")
 
 
-def launch_shares(solve, reps=20):
-    """Device time per solve of each of the kernel's launches
-    (torch.profiler over `reps` solves)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    solve()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            solve()
-        torch.cuda.synchronize()
-    times = {e.key: e.self_device_time_total / reps for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and ("sw_broadphase" in e.key or "sw_sweeps" in e.key)}
-    total = sum(times.values())
-    if not total:
-        log("launch shares: device time not measured (no device events)")
-        return
-    for key, us in sorted(times.items(), key=lambda kv: -kv[1]):
-        name = "sw_broadphase" if "sw_broadphase" in key else "sw_sweeps"
-        log(f"  launch {name}: {us:.2f} us/solve, {100 * us / total:.1f}% of the solve")
-
-
-def profile_steps(run_steps, state, step_ms, steps=PROFILE_STEPS, unit="step"):
-    """Where a step's time goes: torch.profiler over `steps` steps of a
-    path (`run_steps` runs that many). Prints device busy time per step
-    (device-side events only: kernels, copies, sets), its share of the
-    unprofiled step time `step_ms`, device launches per step and the kernels
-    that take the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    run_steps(state)  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_steps(state)
-        torch.cuda.synchronize()
-    dev = sorted(
-        ((e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-        key=lambda d: -d[2],
-    )
-    if not dev:
-        log(f"profile {steps} {unit}s: device time not measured (no device events)")
-        return
-    busy_us = sum(d[2] for d in dev) / steps
-    log(f"profile {steps} {unit}s: device busy {busy_us:.1f} us/{unit}, "
-        f"{100 * busy_us / (step_ms * 1e3):.1f}% of the {step_ms:.4f} ms {unit}; "
-        f"{sum(d[1] for d in dev) / steps:.1f} device launches/{unit}")
-    for key, count, us in dev[:6]:
-        log(f"  {us / steps:8.1f} us/{unit} {count / steps:5.1f}x/{unit}  {key[:90]}")
-    sw = [d for d in dev if "sw_broadphase" in d[0] or "sw_sweeps" in d[0]]
-    log(f"  sphere_world kernels: {sum(d[2] for d in sw) / steps:.1f} us/{unit}, "
-        f"{sum(d[1] for d in sw) / steps:.1f} launches/{unit}")
-
-
-def count_ops(fn) -> int:
-    """PyTorch operators that fn() dispatches, views left out: in eager mode
-    each is about one device launch made by the host."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += not func.is_view
-            return func(*args, **(kwargs or {}))
-
-    with Count() as counter:
-        fn()
-    return counter.n
-
-
-def franka_layers(env, state) -> None:
-    """Ops and host ms (time_layers) of the layers of one Franka step: the
-    control, phase A with the body cache reused (first substep) and with FK
-    (second substep), and the refresh. Phase D is the rest."""
-    st, params, actions = env.sim.stepper, env.sim.params, env.sim.actions
-    layers = {
-        "control (jacobian, mass matrix, 7x7 and 6x6 solves)":
-            lambda: env._control(state, state.steps, params=params),
-        "phase A, body cache reused (dynamics, 9x9 solve)":
-            lambda: st.group_velocities(state, actions, params, True),
-        "phase A with FK": lambda: st.group_velocities(state, actions, params, False),
-        "refresh (FK)": lambda: st.refresh_body_state(state, params),
-    }
-    time_layers(layers)
-
-
-def time_layers(layers) -> None:
-    """Print each layer's ops (count_ops) and host ms: the clock around 5
-    calls after a warm one, ending in a synchronize, over 5."""
-    for name, fn in layers.items():
-        ops = count_ops(fn)
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-        log(f"  layer {name}: {ops} ops, {(time.perf_counter() - t) / 5 * 1e3:.3f} ms")
-
-
 def fk_kernel_phase(kernels) -> dict:
     """csrc/fk.cu against its plain version _fk_torch at the Franka path's
     shape (FRANKA_ENVS envs of the stand-in, a random start): the default
     tolerance, one launch a call, two launches bitwise equal; its device time
     by CUDA-graph replay beside its byte bound and the plain version's time.
     Returns its entry of the {"kernels": ...} line."""
+    from portbench.harness.roofline import PEAK_BYTES
     from test_isaacgym_tpu_torch.envs.franka import FrankaOscEnv
     from test_isaacgym_tpu_torch.physics import kinematics as tk
 
@@ -670,35 +435,26 @@ def fk_kernel_phase(kernels) -> dict:
     kernel_ms = graph_ms(lambda: [tk.fk(topo, *args) for _ in range(FK_GRAPH_CALLS)],
                          reps=20) / FK_GRAPH_CALLS
     plain_ms = graph_ms(lambda: tk._fk_torch(topo, *args), reps=20)
-    prof = device_ms(lambda: tk.fk(topo, *args), reps=50)
     log(f"fk {FRANKA_ENVS} envs x {topo.num_links} links: kernel {kernel_ms:.5f} ms/call, plain "
         f"{plain_ms:.5f} ms/call (device, CUDA-graph replay), bound {bound_ms:.6f} ms ({nbytes} "
-        f"bytes); the kernel's device time in the profiler "
-        f"{'not measured' if prof is None else f'{prof:.5f} ms'}; back to back (host "
-        f"included): kernel {time_ms(lambda: tk.fk(topo, *args), reps=200):.5f} ms, plain "
-        f"{time_ms(lambda: tk._fk_torch(topo, *args), reps=10, warmup=1):.5f} ms")
+        f"bytes)")
     return {"name": "fk", "route": "cuda", "source": "test_isaacgym_tpu_torch/csrc/fk.cu",
             "replaces": None, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
 def franka_phase(kernels) -> None:
-    """The flagship Franka OSC path at FRANKA_ENVS envs: a timed run with
-    the hand-written kernels' counts read around it (2 fk launches a step,
-    no sphere world), checks of its end state, a profile, and an 8-env run
-    against the stand-in golden."""
+    """The flagship Franka OSC path at FRANKA_ENVS envs: a counted run,
+    checks of its end state and tracking error, and an 8-env run against
+    the stand-in golden."""
     from test_isaacgym_tpu_torch.envs.franka import STANDIN_ROOT, FrankaOscEnv
 
     t = time.perf_counter()
     env = FrankaOscEnv(num_envs=FRANKA_ENVS, device=DEV)
     log(f"franka: {FRANKA_ENVS} envs built in {time.perf_counter() - t:.2f} s")
     env.rollout_fn(2)(env.sim.state)  # warm: allocator and library handles
-    one = env.rollout_fn(1)
-    log(f"franka: {count_ops(lambda: one(env.sim.state))} non-view PyTorch ops a step")
     run = env.rollout_fn(FRANKA_STEPS)
-    s, step_ms, launches = timed(lambda: run(env.sim.state), kernels, "franka", FRANKA_STEPS,
-                                 FRANKA_ENVS, "env")
-    expect_launches(launches, "franka", "franka", FRANKA_STEPS)
+    s = counted_run(lambda: run(env.sim.state), kernels, "franka", "franka", FRANKA_STEPS)
     assert_finite(s, "franka")
     assert_in_limits(s, env.sim.params, "franka")
     env.sim.state = s
@@ -707,9 +463,6 @@ def franka_phase(kernels) -> None:
         f"(bound {FRANKA_TRACK_BOUND})")
     if not track < FRANKA_TRACK_BOUND:
         raise RuntimeError(f"franka tracking error {track:.6f} m >= {FRANKA_TRACK_BOUND}")
-
-    profile_steps(env.rollout_fn(PATH_PROFILE_STEPS), s, step_ms, PATH_PROFILE_STEPS)
-    franka_layers(env, s)
 
     golden = np.load(os.path.join(STANDIN_ROOT, "franka_osc_standin.npz"))
     small = FrankaOscEnv(num_envs=FRANKA_GOLDEN_ENVS, device=DEV)
@@ -721,40 +474,6 @@ def franka_phase(kernels) -> None:
         f"{FRANKA_GOLDEN_EVERY} steps): max |err| of largest magnitude {worst:.3e}")
     if worst > GOLDEN_TOL:
         raise RuntimeError(f"franka departs from the stand-in golden: {worst:.3e} > {GOLDEN_TOL}")
-
-
-def cube_layers(env, ps) -> None:
-    """Ops and host ms (time_layers) of the layers of a step of an arm
-    env with free objects (franka_cube, franka_nut_bolt): the control, and
-    of a substep phase A (body cache reused, then with FK), phase B, phase
-    C's inputs (current poses, link Jacobians, A^-1), narrowphase, the
-    solve's set-up (narrowphase included), one Jacobi sweep (a substep runs
-    `iters` of them, then a few ops of read-back and contact force), phase
-    D; and the refresh."""
-    stp, params = env.sim.stepper, env.sim.params
-    state = ps.sim
-    actions = env.control(ps)[0]
-    gd = stp.group_velocities(state, actions, params, True)
-    fd = stp.free_velocities(state, actions, params)
-    cur_bp, cur_bq, jac, a_inv = stp.contact_inputs(state, gd, fd)
-    c = stp.contact
-    solve_args = (cur_bp, cur_bq, (state.body_linvel, state.body_angvel), fd["v"], fd["w"],
-                  fd["m"], fd["I_w"], fd["com_w"], [g["qd_full"] for g in gd], jac, a_inv,
-                  params, stp.h)
-    s = c.prepare(*solve_args)
-    layers = {
-        "control (FSM, jacobian, solves)": lambda: env.control(ps),
-        "phase A, body cache reused": lambda: stp.group_velocities(state, actions, params, True),
-        "phase A with FK": lambda: stp.group_velocities(state, actions, params, False),
-        "phase B (free bodies)": lambda: stp.free_velocities(state, actions, params),
-        "phase C inputs (poses, link jacobians, A^-1)": lambda: stp.contact_inputs(state, gd, fd),
-        "narrowphase": lambda: c.narrowphase(cur_bp, cur_bq, params),
-        "solve set-up (narrowphase included)": lambda: c.prepare(*solve_args),
-        f"one Jacobi sweep (x{s.iters} a substep)": s.sweep,
-        "phase D": lambda: stp.integrate(state, gd, fd, params),
-        "refresh (FK)": lambda: stp.refresh_body_state(state, params),
-    }
-    time_layers(layers)
 
 
 def assert_finite(state, what) -> None:
@@ -800,54 +519,21 @@ def assert_sync_free(fn, what) -> None:
     log(f"{what}: one step ran with host syncs made errors: none")
 
 
-def timed(run, kernels, what, steps, width, unit):
-    """run() (a loop of `steps` steps of `width` of `unit`, "env" or "body")
-    under the host clock, ending in a synchronize, with the hand-written
-    kernels' counts read around it. Returns (its result, ms/step, launches)."""
+def counted_run(run, kernels, what, path, steps):
+    """run(), a loop of `steps` steps (frames) of `path`, ending in a
+    synchronize, with the hand-written kernels' launches counted around it
+    alone: recorded as PATH_LAUNCHES[what], logged, and held to exactly
+    EXPECTED_LAUNCHES[path] a step of each kernel. Returns run()'s result."""
     torch.cuda.synchronize()
     kernels.launches.clear()
-    t = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = dict(kernels.launches)
-    PATH_LAUNCHES[what] = launches.get("sphere_world", 0)
-    PATH_FK[what] = launches.get("fk", 0)
-    PATH_XPBD[what] = launches.get("xpbd", 0)
-    STEP_MS[what] = wall / steps * 1e3
-    log(f"{what} main path: {steps} steps of {width} {unit} in {wall:.3f} s: "
-        f"{width * steps / wall:.1f} {unit}-steps/s, {wall / steps * 1e3:.4f} ms/step, "
-        f"sphere_world launches {launches.get('sphere_world', 0)}, fk launches "
-        f"{launches.get('fk', 0)}, xpbd launches {launches.get('xpbd', 0)}")
-    return out, wall / steps * 1e3, launches
-
-
-def expect_launches(launches, what, kind, steps, sphere_world=0) -> None:
-    """The hand-written kernels' counts of a path's counted run of `steps`
-    steps (frames): exactly `sphere_world` sphere-world launches, exactly
-    FK_PER_STEP[kind] fk and XPBD_PER_STEP[kind] xpbd launches a step, no
-    other."""
-    want = {"sphere_world": sphere_world, "fk": FK_PER_STEP[kind] * steps,
-            "xpbd": XPBD_PER_STEP.get(kind, 0) * steps}
-    got = {k: launches.get(k, 0) for k in set(want) | set(launches)}
-    if got != {k: want.get(k, 0) for k in got}:
+    got = PATH_LAUNCHES[what] = dict(kernels.launches)
+    want = {k: n * steps for k, n in EXPECTED_LAUNCHES[path].items()}
+    log(f"{what}: {steps} steps, kernel launches {got}")
+    if {k: n for k, n in got.items() if n} != {k: n for k, n in want.items() if n}:
         raise RuntimeError(f"{what} launched hand-written kernels {got}, want {want}")
-
-
-def device_ms(fn, reps=5):
-    """Device busy ms per call of fn() (torch.profiler, device-side events)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3 if us else None
+    return out
 
 
 def attractor_sim(num_envs):
@@ -879,8 +565,6 @@ def attractor_phase(kernels) -> None:
     """The attractor path at ATTRACTOR_ENVS envs: the hand follows the
     example's moving target (written into the actions every step from the
     step count, on the device) for ATTRACTOR_STEPS steps."""
-    from test_isaacgym_tpu_torch.physics import dynamics
-
     t = time.perf_counter()
     sim, hand = attractor_sim(ATTRACTOR_ENVS)
     log(f"attractor: {ATTRACTOR_ENVS} envs built in {time.perf_counter() - t:.2f} s")
@@ -910,11 +594,9 @@ def attractor_phase(kernels) -> None:
 
     s0 = sim.state
     step(s0)  # warm
-    log(f"attractor: {count_ops(lambda: step(s0))} non-view PyTorch ops a step")
     assert_sync_free(lambda: step(s0), "attractor")
-    (s, err), step_ms, launches = timed(lambda: run(s0, ATTRACTOR_STEPS), kernels, "attractor",
-                                        ATTRACTOR_STEPS, ATTRACTOR_ENVS, "env")
-    expect_launches(launches, "attractor", "attractor", ATTRACTOR_STEPS)
+    s, err = counted_run(lambda: run(s0, ATTRACTOR_STEPS), kernels, "attractor", "attractor",
+                         ATTRACTOR_STEPS)
     assert_finite(s, "attractor")
     assert_in_limits(s, params, "attractor")
     worst = float(err.max())
@@ -923,25 +605,6 @@ def attractor_phase(kernels) -> None:
         f"(bound {ATTRACTOR_BOUND})")
     if not worst < ATTRACTOR_BOUND:
         raise RuntimeError(f"an attractor env's mean error {worst:.6f} m >= {ATTRACTOR_BOUND}")
-
-    def run_steps(state):
-        for _ in range(PATH_PROFILE_STEPS):
-            state = step(state)[0]
-        return state
-
-    profile_steps(run_steps, s, step_ms, PATH_PROFILE_STEPS)
-    gi, att = stp.groups[0], stp.attractors_by_group[0][0]
-    pos, quat, _, _ = stp._link_state_from_bodies(gi, s)
-    M = dynamics.mass_matrix(gi.topo, pos, quat, mass=stp._link_params(gi, params.body_mass, 0.0),
-                             com=stp._link_params(gi, params.body_com, 0.0),
-                             inertia=stp._link_params(gi, params.body_inertia, 0.0))
-    qd = s.dof_vel[:, gi.dof_idx]
-    time_layers({
-        "phase A, body cache reused (attractor included)":
-            lambda: stp.group_velocities(s, actions0, params, True),
-        "the attractor impulse (one attractor, one substep)":
-            lambda: stp._attractor_impulse(att, gi.topo, pos, quat, M, qd, actions0, params),
-    })
 
 
 def uav_phase(kernels) -> None:
@@ -954,11 +617,9 @@ def uav_phase(kernels) -> None:
     log(f"uav_car: {UAV_ENVS} envs built in {time.perf_counter() - t:.2f} s")
     s0 = env.init_state
     env.rollout(2)  # warm
-    log(f"uav_car: {count_ops(lambda: env.step_fn(s0))} non-view PyTorch ops a step")
     assert_sync_free(lambda: env.step_fn(s0), "uav_car")
-    (final, (pixels, _)), step_ms, launches = timed(
-        lambda: env.rollout(UAV_STEPS), kernels, "uav_car", UAV_STEPS, UAV_ENVS, "env")
-    expect_launches(launches, "uav_car", "uav_car", UAV_STEPS)
+    final, _ = counted_run(lambda: env.rollout(UAV_STEPS), kernels, "uav_car", "uav_car",
+                           UAV_STEPS)
     assert_finite(final.sim, "uav_car")
     if not torch.isfinite(final.cam_rot).all():
         raise RuntimeError("uav_car cam_rot is not finite")
@@ -972,7 +633,6 @@ def uav_phase(kernels) -> None:
         f"{pix_err:.6f} px from the centre (bound {UAV_PIXEL_BOUND})")
     if not (off_circle < UAV_CIRCLE_SLACK and pix_err < UAV_PIXEL_BOUND):
         raise RuntimeError("uav_car: a car left its circle or the image centre")
-    profile_steps(lambda st: env.rollout(10, st)[0], final, step_ms, 10)
 
     golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "tests", "goldens", "uav_car.npz"))
@@ -1024,29 +684,9 @@ def box_sim(n_boxes, spheres=False):
     return Simulator(*b.finalize(DEV), device=DEV)
 
 
-def neighbor_solve_args(sim, state):
-    """The arguments of the neighbor-world solve of the first substep of a
-    step from `state`, caught as the step makes them."""
-    from test_isaacgym_tpu_torch.ops import neighbor_world as nw
-
-    caught, solve = [], nw.solve
-
-    def catch(*args, **kw):
-        caught.append((args, kw))
-        return solve(*args, **kw)
-
-    nw.solve = catch
-    try:
-        sim.stepper.step(state, sim.actions, sim.params)
-    finally:
-        nw.solve = solve
-    return caught[0]
-
-
 def box_phase(kernels) -> None:
     """The 1080-box world on the neighbor-list path: BOX_STEPS steps, twice
-    from the same state (they must give the same bits), a profile and the
-    solve's device time."""
+    from the same state (they must give the same bits)."""
     from test_isaacgym_tpu_torch.ops import neighbor_world as nw
 
     sim = box_sim(BOX_COUNT)
@@ -1064,11 +704,8 @@ def box_phase(kernels) -> None:
 
     s0 = sim.state
     run(s0, 1)  # warm
-    log(f"box{BOX_COUNT}: {count_ops(lambda: run(s0, 1))} non-view PyTorch ops a step")
     assert_sync_free(lambda: run(s0, 1), f"box{BOX_COUNT}")
-    s, step_ms, launches = timed(lambda: run(s0, BOX_STEPS), kernels, f"box{BOX_COUNT}",
-                                 BOX_STEPS, BOX_COUNT, "body")
-    expect_launches(launches, f"box{BOX_COUNT}", "box", BOX_STEPS)
+    s = counted_run(lambda: run(s0, BOX_STEPS), kernels, f"box{BOX_COUNT}", "box", BOX_STEPS)
     assert_finite(s, f"box{BOX_COUNT}")
     z = s.root_pos[0, :, 2]
     vmax = float(s.root_linvel.abs().max())
@@ -1083,12 +720,6 @@ def box_phase(kernels) -> None:
         f"{diff:.3e} (the solve's per-body sums are segment sums, no atomics)")
     if diff != 0.0:
         raise RuntimeError(f"two box{BOX_COUNT} runs from one state differ by {diff:.3e}")
-    profile_steps(lambda st: run(st, PATH_PROFILE_STEPS), s, step_ms, PATH_PROFILE_STEPS)
-    args, kw = neighbor_solve_args(sim, s)
-    dev_ms = device_ms(lambda: nw.solve(*args, **kw))
-    log(f"box{BOX_COUNT} neighbor-world solve: {count_ops(lambda: nw.solve(*args, **kw))} ops, "
-        f"device {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, "
-        f"host clock {time_ms(lambda: nw.solve(*args, **kw), reps=5, warmup=1):.4f} ms a solve")
 
 
 def mixed_phase(kernels, sw) -> float:
@@ -1111,21 +742,13 @@ def mixed_phase(kernels, sw) -> float:
 
     s0 = sim.state
     run(s0, 1)  # warm
-    log(f"mixed200: {count_ops(lambda: run(s0, 1))} non-view PyTorch ops a step")
     assert_sync_free(lambda: run(s0, 1), "mixed200")
-    want = sw.LAUNCHES_PER_SOLVE * stp.substeps * MIXED_STEPS
-    s, step_ms, launches = timed(lambda: run(s0, MIXED_STEPS), kernels, "mixed200",
-                                 MIXED_STEPS, 200, "body")
-    log(f"mixed200: sphere_world launches {launches.get('sphere_world', 0)}, want "
-        f"{sw.LAUNCHES_PER_SOLVE} a solve x {stp.substeps} solves a step x {MIXED_STEPS} "
-        f"steps = {want}")
-    expect_launches(launches, "mixed200", "mixed", MIXED_STEPS, sphere_world=want)
+    s = counted_run(lambda: run(s0, MIXED_STEPS), kernels, "mixed200", "mixed", MIXED_STEPS)
     assert_finite(s, "mixed200")
     z = s.root_pos[0, :, 2]
     log(f"mixed200 after {MIXED_STEPS} steps: z in [{float(z.min()):.4f}, {float(z.max()):.4f}]")
     if not (float(z.min()) > 0.05 and float(z.max()) < 0.6):
         raise RuntimeError("the mixed world sank or blew up")
-    profile_steps(lambda st: run(st, PATH_PROFILE_STEPS), s, step_ms, PATH_PROFILE_STEPS)
     fd = stp.free_velocities(s, sim.actions, sim.params)
     args = c._sphere_world_inputs(s.body_pos, fd["v"], fd["w"], fd["m"], fd["I_w"],
                                   sim.params, stp.h)
@@ -1167,25 +790,6 @@ def debug_phase() -> None:
         "the balls, Franka OSC and franka_cube steps")
 
 
-def pile_layers(sim, state) -> None:
-    """Ops and host ms (time_layers) of the contact table's layers in a
-    step of a free-body world: the narrowphase (hull and heightfield kinds
-    included), the solve's set-up (narrowphase included) and one Jacobi
-    sweep."""
-    stp, params = sim.stepper, sim.params
-    fd = stp.free_velocities(state, sim.actions, params)
-    cur_bp, cur_bq, jac, a_inv = stp.contact_inputs(state, [], fd)
-    c = stp.contact
-    solve_args = (cur_bp, cur_bq, (state.body_linvel, state.body_angvel), fd["v"], fd["w"],
-                  fd["m"], fd["I_w"], fd["com_w"], [], jac, a_inv, params, stp.h)
-    s = c.prepare(*solve_args)
-    time_layers({
-        "narrowphase": lambda: c.narrowphase(cur_bp, cur_bq, params),
-        "solve set-up (narrowphase included)": lambda: c.prepare(*solve_args),
-        f"one Jacobi sweep (x{s.iters} a substep)": s.sweep,
-    })
-
-
 def port_data(name) -> str:
     """The path of a file the port commits under its assets/data/."""
     return os.path.join(os.path.dirname(os.path.abspath(__file__)), "test_isaacgym_tpu_torch",
@@ -1207,10 +811,8 @@ def pile_sim(env_ids, terrain=None):
 
 def pile_phase(kernels, name, terrain=None) -> None:
     """The hull_pile path (terrain None) or the terrain path at 4096 envs:
-    a step with host syncs made errors, PILE_STEPS timed steps with the
-    kernels' counts read around them (the sphere-world count must stay 0),
-    the path's bounds, a profile, the contact layers' ops and host ms, and
-    8 envs against the path's golden."""
+    a step with host syncs made errors, a counted run of PILE_STEPS steps,
+    the path's bounds, and 8 envs against the path's golden."""
     from test_isaacgym_tpu_torch.envs import pile
 
     width = TERRAIN_ENVS if terrain is not None else HULL_ENVS
@@ -1228,11 +830,8 @@ def pile_phase(kernels, name, terrain=None) -> None:
 
     s0 = sim.state
     run(s0, 1)  # warm
-    log(f"{name}: {count_ops(lambda: run(s0, 1))} non-view PyTorch ops a step")
     assert_sync_free(lambda: run(s0, 1), name)
-    s, step_ms, launches = timed(lambda: run(s0, PILE_STEPS), kernels, name, PILE_STEPS, width,
-                                 "env")
-    expect_launches(launches, name, "pile", PILE_STEPS)
+    s = counted_run(lambda: run(s0, PILE_STEPS), kernels, name, "pile", PILE_STEPS)
     assert_finite(s, name)
     depth = c.narrowphase(s.body_pos, s.body_quat, sim.params)[2].cpu().numpy()
     clearance = pile.ground_clearance(c, depth)
@@ -1249,8 +848,6 @@ def pile_phase(kernels, name, terrain=None) -> None:
             raise RuntimeError(f"{name} sinks deeper or rests otherwise than the JAX package")
     else:
         check_terrain_bounds(sim, s, name, golden)
-    profile_steps(lambda st: run(st, PATH_PROFILE_STEPS), s, step_ms, PATH_PROFILE_STEPS)
-    pile_layers(sim, s)
 
     ids = [int(k) for k in golden["env_ids"]]
     small = pile_sim(ids, terrain)
@@ -1297,10 +894,10 @@ def check_terrain_bounds(sim, state, name, golden) -> None:
 
 
 def balls_terrain_phase(kernels, sw) -> float:
-    """The 1080 balls over a bowl: the sphere-world kernel's no-ground branch
-    held against its plain version on the piled inputs, BALLS_TERRAIN_STEPS
-    steps with its launches counted exactly, the sinking bound, a profile.
-    Returns the kernel's max |err| there."""
+    """The 1080 balls over a bowl: a counted run of BALLS_TERRAIN_STEPS
+    steps, the sinking bound, and the sphere-world kernel's no-ground branch
+    held against its plain version on the piled inputs. Returns the
+    kernel's max |err| there."""
     from test_isaacgym_tpu_torch import terrain_utils as tu
     from test_isaacgym_tpu_torch.envs.balls import BallsEnv
 
@@ -1316,15 +913,9 @@ def balls_terrain_phase(kernels, sw) -> float:
     s0 = sim.state
     run = env.rollout_fn(BALLS_TERRAIN_STEPS)
     env.rollout_fn(1)(s0)  # warm
-    log(f"balls_terrain1080: {count_ops(lambda: env.rollout_fn(1)(s0))} non-view PyTorch ops a step")
     assert_sync_free(lambda: env.rollout_fn(1)(s0), "balls_terrain1080")
-    want = sw.LAUNCHES_PER_SOLVE * stp.substeps * BALLS_TERRAIN_STEPS
-    s, step_ms, launches = timed(lambda: run(s0), kernels, "balls_terrain1080",
-                                 BALLS_TERRAIN_STEPS, env.balls_per_world, "ball")
-    log(f"balls_terrain1080: sphere_world launches {launches.get('sphere_world', 0)}, want "
-        f"{sw.LAUNCHES_PER_SOLVE} a solve x {stp.substeps} a step x {BALLS_TERRAIN_STEPS} = {want}")
-    expect_launches(launches, "balls_terrain1080", "balls_terrain", BALLS_TERRAIN_STEPS,
-                    sphere_world=want)
+    s = counted_run(lambda: run(s0), kernels, "balls_terrain1080", "balls_terrain",
+                    BALLS_TERRAIN_STEPS)
     assert_finite(s, "balls_terrain1080")
     depth = float(c.narrowphase(s.body_pos, s.body_quat, sim.params)[2].max())
     above, inside = centre_heights(sim, s)
@@ -1335,8 +926,6 @@ def balls_terrain_phase(kernels, sw) -> float:
         f"contact {depth:.6f} m (JAX {float(jax['jax_balls_depth']):.6f})")
     if not (above.min() > -BALL_SINK and inside.all()):
         raise RuntimeError(f"a ball sank under the terrain or left it: {above.min():.6f} m")
-    profile_steps(env.rollout_fn(10), s, step_ms, 10)
-    pile_layers(sim, s)
     fd = stp.free_velocities(s, sim.actions, sim.params)
     args = c._sphere_world_inputs(s.body_pos, fd["v"], fd["w"], fd["m"], fd["I_w"], sim.params,
                                   stp.h)
@@ -1346,22 +935,11 @@ def balls_terrain_phase(kernels, sw) -> float:
     return err
 
 
-def sdf_layer(c, state, params) -> None:
-    """Ops and host ms (time_layers) of the SDF narrowphase alone, on its
-    rows' shape poses: the part of the narrowphase that pile_layers and
-    cube_layers time whole."""
-    poses = c.shape_poses(state.body_pos, state.body_quat, params)
-    fams = ", ".join("voxel" if fn is None else "closed form"
-                     for _, fn in c._tables(state.body_pos.device).sdf.families)
-    time_layers({f"SDF narrowphase ({fams})": lambda: c.sdf_rows(*poses)})
-
-
 def nut_bolt_phase(kernels) -> None:
-    """bench.py's nut_bolt@1024: a step with host syncs made errors,
-    NUT_STEPS timed steps with the kernels' counts read around them (the
-    sphere-world count must stay 0), every env's descent against
-    test_nut_threads_down's bar, a profile, the SDF layers' ops and host
-    ms, a TIG_DEBUG step, and 2 envs against nut_bolt_standin.npz."""
+    """bench.py's nut_bolt@1024: a step with host syncs made errors, a
+    counted run of NUT_STEPS steps, every env's descent against
+    test_nut_threads_down's bar, a TIG_DEBUG step, and 2 envs against
+    nut_bolt_standin.npz."""
     from test_isaacgym_tpu_torch.envs.nut_bolt import NutBoltEnv
     from test_isaacgym_tpu_torch.utils import debug
 
@@ -1378,11 +956,8 @@ def nut_bolt_phase(kernels) -> None:
         raise RuntimeError(f"{name} has no SDF rows on the table")
     s0 = sim.state
     env.rollout(1, s0)  # warm
-    log(f"{name}: {count_ops(lambda: env.rollout(1, s0))} non-view PyTorch ops a step")
     assert_sync_free(lambda: env.rollout(1, s0), name)
-    s, step_ms, launches = timed(lambda: env.rollout(NUT_STEPS, s0), kernels, name, NUT_STEPS,
-                                 NUT_ENVS, "env")
-    expect_launches(launches, name, "nut_bolt", NUT_STEPS)
+    s = counted_run(lambda: env.rollout(NUT_STEPS, s0), kernels, name, "nut_bolt", NUT_STEPS)
     assert_finite(s, name)
     dz = (env.nut_height(s) - env.nut_height(s0)).cpu().numpy()
     want = 2 * env.pitch * env.spin / (2 * np.pi)
@@ -1393,9 +968,6 @@ def nut_bolt_phase(kernels) -> None:
         f"{float(golden['jax_descent_min']):.6f} to {float(golden['jax_descent_max']):.6f}")
     if not (np.abs(dz - want).max() <= NUT_RTOL * abs(want) and np.ptp(dz) < NUT_SPREAD):
         raise RuntimeError(f"{name}: a nut did not thread down two pitches")
-    profile_steps(lambda st: env.rollout(PATH_PROFILE_STEPS, st), s, step_ms, PATH_PROFILE_STEPS)
-    pile_layers(sim, s)
-    sdf_layer(c, s, sim.params)
 
     os.environ["TIG_DEBUG"] = "1"
     try:
@@ -1422,11 +994,10 @@ def nut_bolt_phase(kernels) -> None:
 
 def franka_nut_bolt_phase(kernels) -> None:
     """The reference example's franka_nut_bolt at FNB_ENVS envs from the
-    bolt start: a step with host syncs made errors, FNB_STEPS timed steps
-    with the kernels' counts read around them (the sphere-world count must
-    stay 0), the FSM shares and mean nut descent against the JAX env's, a
-    profile, the layers' ops and host ms, and both starts at 2 envs
-    against franka_nut_bolt_standin.npz, FSM states included."""
+    bolt start: a step with host syncs made errors, a counted run of
+    FNB_STEPS steps, the FSM shares and mean nut descent against the JAX
+    env's, and both starts at 2 envs against franka_nut_bolt_standin.npz,
+    FSM states included."""
     from test_isaacgym_tpu_torch.envs.franka_nut_bolt import NUM_STATES, FrankaNutBoltEnv
 
     name = f"franka_nut_bolt{FNB_ENVS}"
@@ -1442,11 +1013,9 @@ def franka_nut_bolt_phase(kernels) -> None:
         raise RuntimeError(f"{name} does not run both SDF families")
     ps = env.init_state
     env.rollout(1, ps)  # warm
-    log(f"{name}: {count_ops(lambda: env.step_fn(ps))} non-view PyTorch ops a step")
     assert_sync_free(lambda: env.step_fn(ps), name)
-    (end, (fsm_tr, _)), step_ms, launches = timed(lambda: env.rollout(FNB_STEPS, ps), kernels,
-                                                   name, FNB_STEPS, FNB_ENVS, "env")
-    expect_launches(launches, name, "franka_nut_bolt", FNB_STEPS)
+    end, _ = counted_run(lambda: env.rollout(FNB_STEPS, ps), kernels, name, "franka_nut_bolt",
+                         FNB_STEPS)
     assert_finite(end.sim, name)
     assert_in_limits(end.sim, env.sim.params, name)
     golden = np.load(port_data("franka_nut_bolt_standin.npz"))
@@ -1464,10 +1033,6 @@ def franka_nut_bolt_phase(kernels) -> None:
     if abs(descent - jax_descent) > FNB_DESCENT_RTOL * abs(jax_descent):
         raise RuntimeError(f"{name}: mean nut descent {descent:.6e} not within "
                            f"{FNB_DESCENT_RTOL:.0%} of the JAX env's {jax_descent:.6e}")
-    profile_steps(lambda st: env.rollout(PATH_PROFILE_STEPS, st)[0], end, step_ms,
-                  PATH_PROFILE_STEPS)
-    cube_layers(env, end)
-    sdf_layer(c, end.sim, env.sim.params)
 
     for start in ("table", "bolt"):
         small = FrankaNutBoltEnv(num_envs=2, start_on_bolt=start == "bolt", device=DEV)
@@ -1488,23 +1053,6 @@ def franka_nut_bolt_phase(kernels) -> None:
             f"states {'equal' if same else 'DIFFER'}")
         if worst > GOLDEN_TOL or not same:
             raise RuntimeError(f"{name} {start} departs from its golden")
-
-
-def soft_layers(sim, state) -> None:
-    """Ops and host ms (time_layers) of a substep's soft part (its materials
-    in eager ops, then one launch of csrc/xpbd.cu: the XPBD iterations,
-    friction and damping); and the soft part's device ms a step."""
-    stp, params = sim.stepper, sim.params
-    sf = stp.soft
-    args = (state.soft_pos, state.soft_vel, state.body_pos, state.body_quat, params, stp.h,
-            params.gravity)
-    time_layers({
-        f"soft substep (materials, then the xpbd kernel: {sf.iters} XPBD iterations, friction, "
-        "damping)": lambda: sf.substep(*args),
-    })
-    ms = device_ms(lambda: [sf.substep(*args) for _ in range(stp.substeps)], reps=1)
-    log(f"  soft part's device time a step ({stp.substeps} substeps): "
-        + (f"{ms:.3f} ms" if ms else "not measured"))
 
 
 def soft_ends(sim, state):
@@ -1550,9 +1098,10 @@ def xpbd_kernel_check(kernels, sim, state) -> dict:
         f"{err_pos / scale:.3e}, {err_vel * stp.h / scale:.3e}")
     if max(err_pos, err_vel * stp.h) > XPBD_TOL * scale:
         raise RuntimeError(f"the xpbd kernel disagrees with plain beyond {XPBD_TOL}")
-    lib = soft._library()
-    log(f"xpbd: {lib.xpbd_threads(T)} threads and {soft.xpbd_shared_bytes(V, T, M)} bytes of "
-        f"shared memory a block, {lib.xpbd_blocks_per_sm(V, T, M)} blocks an SM")
+    threads = kernels.entry("xpbd", "xpbd_threads", [ctypes.c_int])
+    blocks_per_sm = kernels.entry("xpbd", "xpbd_blocks_per_sm", [ctypes.c_int] * 3)
+    log(f"xpbd: {threads(T)} threads and {soft.xpbd_shared_bytes(V, T, M)} bytes of "
+        f"shared memory a block, {blocks_per_sm(V, T, M)} blocks an SM")
     bound_ms, bound_by = xpbd_bound(N, V, T, M, sf.iters, 1)
     kernel_ms = graph_ms(lambda: sf.substep(*args), reps=20)
     plain_ms = graph_ms(lambda: sf._substep_torch(*args), reps=3)
@@ -1566,14 +1115,12 @@ def xpbd_kernel_check(kernels, sim, state) -> dict:
 
 def soft_body_phase(kernels) -> dict:
     """examples/soft_body.py at SOFT_ENVS envs: a step with host syncs made
-    errors, SOFT_STEPS timed steps with the kernels' counts read around
-    them (the sphere-world count must stay 0, 3 xpbd launches a step), the
-    xpbd kernel against its plain version (xpbd_kernel_check, whose entry
-    of the {"kernels": ...} line it returns), every env's lowest vertex and
-    volume ratio against their bounds and the JAX package's 1024 envs,
-    tet_stress and tri_normals, two SOFT_REPEAT_STEPS runs bitwise equal, a
-    profile, the soft layers' ops and host ms, a TIG_DEBUG step at 4 envs,
-    and soft_body_standin.npz and soft_pedestals_standin.npz."""
+    errors, a counted run of SOFT_STEPS steps, the xpbd kernel against its
+    plain version (xpbd_kernel_check, whose entry of the {"kernels": ...}
+    line it returns), every env's lowest vertex and volume ratio against
+    their bounds and the JAX package's 1024 envs, tet_stress and
+    tri_normals, two SOFT_REPEAT_STEPS runs bitwise equal, a TIG_DEBUG step
+    at 4 envs, and soft_body_standin.npz and soft_pedestals_standin.npz."""
     from test_isaacgym_tpu_torch.envs.soft_body import pedestals_sim, soft_body_sim
     from test_isaacgym_tpu_torch.utils import debug
 
@@ -1588,11 +1135,8 @@ def soft_body_phase(kernels) -> dict:
     s0 = sim.state
     run = lambda st, n: stp.rollout(st, sim.actions, sim.params, n)  # noqa: E731
     run(s0, 1)  # warm
-    log(f"{name}: {count_ops(lambda: run(s0, 1))} non-view PyTorch ops a step")
     assert_sync_free(lambda: run(s0, 1), name)
-    s, step_ms, launches = timed(lambda: run(s0, SOFT_STEPS), kernels, name, SOFT_STEPS,
-                                 SOFT_ENVS, "env")
-    expect_launches(launches, name, "soft_body", SOFT_STEPS)
+    s = counted_run(lambda: run(s0, SOFT_STEPS), kernels, name, "soft_body", SOFT_STEPS)
     assert_finite(s, name)
     xpbd_entry = xpbd_kernel_check(kernels, sim, run(s0, XPBD_CHECK_STEP))
 
@@ -1652,8 +1196,6 @@ def soft_body_phase(kernels) -> dict:
     log(f"{name}: two {SOFT_REPEAT_STEPS}-step runs differ by {diff}")
     if diff != 0.0:
         raise RuntimeError(f"{name} is not bitwise repeatable")
-    profile_steps(lambda st: run(st, SOFT_PROFILE_STEPS), s, step_ms, SOFT_PROFILE_STEPS)
-    soft_layers(sim, s)
 
     os.environ["TIG_DEBUG"] = "1"
     try:
@@ -1705,10 +1247,9 @@ def frame_check(what, rgba, seg, want_rgb, want_seg):
 
 def ant_phase(kernels) -> None:
     """make(task="Ant") at ANT_ENVS envs: a step with host syncs made errors,
-    ANT_STEPS timed steps of RandomState(0) actions already on the card with
-    the kernels' counts read around them (the sphere-world count must stay
-    0), the state of the envs still in the scene finite and in their joint
-    limits, the statistics against the JAX package's, a profile, the 4-env
+    a counted run of ANT_STEPS steps of RandomState(0) actions already on
+    the card, the state of the envs still in the scene finite and in their
+    joint limits, the statistics against the JAX package's, the 4-env
     golden and render() of env 0 against the JAX frame."""
     from test_isaacgym_tpu_torch.envs import rl_env
 
@@ -1721,7 +1262,6 @@ def ant_phase(kernels) -> None:
                            .astype(np.float32), device=DEV)
     env.reset()
     env.step(acts[0])  # warm
-    log(f"{name}: {count_ops(lambda: env.step(acts[0]))} non-view PyTorch ops a step")
     assert_sync_free(lambda: env.step(acts[0]), name)
 
     def run():
@@ -1732,8 +1272,7 @@ def ant_phase(kernels) -> None:
             reset |= done
         return obs, reset, done
 
-    (obs, reset, done), step_ms, launches = timed(run, kernels, name, ANT_STEPS, ANT_ENVS, "env")
-    expect_launches(launches, name, "ant", ANT_STEPS)
+    obs, reset, done = counted_run(run, kernels, name, "ant", ANT_STEPS)
     (share, left_share, height), left = ant_stats(obs, reset)
     s = env.state
     for key, v in s._asdict().items():
@@ -1764,8 +1303,6 @@ def ant_phase(kernels) -> None:
             f"slack {slack:.6f} ({ANT_SLACK_FACTOR:g} x their difference)")
         if abs(got - jit) > slack:
             raise RuntimeError(f"{name}: the {what} departs from the JAX package's")
-    profile_steps(lambda st: [env.step(a) for a in acts[:ANT_PROFILE_STEPS]], None, step_ms,
-                  ANT_PROFILE_STEPS)
 
     small = rl_env.make(task="Ant", num_envs=int(g["num_envs"]), sim_device=DEV, rl_device=DEV)
     small.reset()
@@ -1792,9 +1329,8 @@ def ant_phase(kernels) -> None:
 
 def reach_phase(kernels) -> None:
     """make(task="Franka") at REACH_ENVS envs: a step with host syncs made
-    errors, REACH_STEPS timed steps with the kernels' counts read around them
-    (the sphere-world count must stay 0), the state finite and in its limits,
-    and the 8-env golden."""
+    errors, a counted run of REACH_STEPS steps, the state finite and in its
+    limits, and the 8-env golden."""
     from test_isaacgym_tpu_torch.envs import rl_env
 
     name = f"franka_reach{REACH_ENVS}"
@@ -1805,7 +1341,6 @@ def reach_phase(kernels) -> None:
                            .astype(np.float32), device=DEV)
     env.reset()
     env.step(acts[0])  # warm
-    log(f"{name}: {count_ops(lambda: env.step(acts[0]))} non-view PyTorch ops a step")
     assert_sync_free(lambda: env.step(acts[0]), name)
 
     def run():
@@ -1814,8 +1349,7 @@ def reach_phase(kernels) -> None:
             obs, rew, _, _ = env.step(acts[k])
         return obs, rew
 
-    (obs, rew), step_ms, launches = timed(run, kernels, name, REACH_STEPS, REACH_ENVS, "env")
-    expect_launches(launches, name, "franka_reach", REACH_STEPS)
+    obs, rew = counted_run(run, kernels, name, "franka_reach", REACH_STEPS)
     assert_finite(env.state, name)
     assert_in_limits(env.state, env.sim.params, name)
     log(f"{name}: mean reward after {REACH_STEPS} steps {float(rew.mean()):.6f}")
@@ -1834,17 +1368,6 @@ def reach_phase(kernels) -> None:
         f"max |err| of largest magnitude {worst:.3e}")
     if worst > GOLDEN_TOL:
         raise RuntimeError(f"{name} departs from the golden: {worst:.3e} > {GOLDEN_TOL}")
-
-
-def counted_launches(kernels, what, kind, frames) -> None:
-    """The hand-written kernels' counts of a counted run of `frames` frames
-    of a path without the sphere world: recorded by path, and held by
-    expect_launches."""
-    launches = dict(kernels.launches)
-    PATH_LAUNCHES[what] = launches.get("sphere_world", 0)
-    PATH_FK[what] = launches.get("fk", 0)
-    log(f"{what}: sphere_world launches {PATH_LAUNCHES[what]}, fk launches {PATH_FK[what]}")
-    expect_launches(launches, what, kind, frames)
 
 
 def nut_scene_render(raster, sim, tb, width, height, seg=None):
@@ -1881,9 +1404,9 @@ def nut_scene_render(raster, sim, tb, width, height, seg=None):
 
 def render_phase(kernels) -> None:
     """bench.py's render config on one env of the FrankaNutBoltEnv scene:
-    the tables hold triangle and hull rows, RENDER_FRAMES timed frames at
-    RENDER_SIZE, two frames bitwise equal, and RENDER_SMALL of the same
-    camera against render_standin.npz."""
+    the tables hold triangle and hull rows, a counted run of RENDER_FRAMES
+    frames at RENDER_SIZE, two frames bitwise equal, and RENDER_SMALL of the
+    same camera against render_standin.npz."""
     from test_isaacgym_tpu_torch.envs.franka_nut_bolt import FrankaNutBoltEnv
     from test_isaacgym_tpu_torch.render import raster
 
@@ -1901,21 +1424,13 @@ def render_phase(kernels) -> None:
     first = frame()  # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.launches.clear()
-    t = time.perf_counter()
-    for _ in range(RENDER_FRAMES):
-        out = frame()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t) / RENDER_FRAMES * 1e3
-    counted_launches(kernels, name, "render", RENDER_FRAMES)
+    out = counted_run(lambda: [frame() for _ in range(RENDER_FRAMES)][-1], kernels, name,
+                      "render", RENDER_FRAMES)
     hit = float(torch.isfinite(out[1]).float().mean())
-    log(f"{name}: {ms:.4f} ms/frame over {RENDER_FRAMES} frames ({w * h} rays a frame), "
-        f"{hit:.4f} of the pixels hit, peak device memory "
+    log(f"{name}: {w * h} rays a frame, {hit:.4f} of the pixels hit, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not all(torch.equal(a, b) for a, b in zip(first, out)):
         raise RuntimeError(f"{name}: two frames of the same scene differ")
-    log(f"{name}: {count_ops(frame)} non-view PyTorch ops a frame")
-    profile_steps(lambda _: frame(), None, ms, 1, "frame")
 
     g = np.load(port_data("render_standin.npz"))
     rgba, depth, seg_img = (x[0] for x in nut_scene_render(raster, sim, tb, *RENDER_SMALL, seg))
@@ -1930,8 +1445,8 @@ def render_phase(kernels) -> None:
 def camera_phase(kernels) -> None:
     """A CAMERA_SIZE CameraSensor on each of ANT_ENVS Ant envs: CAMERA_FRAMES
     frames, each after randomize_colors, randomize_light and
-    randomize_camera_pose drawn from a generator on the card; timed; a second
-    run from the same seed bitwise equal."""
+    randomize_camera_pose drawn from a generator on the card, counted; a
+    second run from the same seed bitwise equal."""
     from test_isaacgym_tpu_torch import randomize as dr
     from test_isaacgym_tpu_torch.core.config import CameraProperties
     from test_isaacgym_tpu_torch.envs import rl_env
@@ -1967,18 +1482,9 @@ def camera_phase(kernels) -> None:
     frames()  # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.launches.clear()
-    t = time.perf_counter()
-    a = frames()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    counted_launches(kernels, name, "ant_camera", CAMERA_FRAMES)
-    log(f"{name}: {CAMERA_FRAMES} frames of {ANT_ENVS} {w}x{h} cameras in {wall:.3f} s: "
-        f"{wall / CAMERA_FRAMES * 1e3:.4f} ms/frame, {ANT_ENVS * CAMERA_FRAMES / wall:.1f} "
-        f"env-frames/s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"{name}: {count_ops(frames) // CAMERA_FRAMES} non-view PyTorch ops a frame "
-        "(randomizers included)")
-    profile_steps(lambda _: frames(), None, wall / CAMERA_FRAMES * 1e3, CAMERA_FRAMES, "frame")
+    a = counted_run(frames, kernels, name, "ant_camera", CAMERA_FRAMES)
+    log(f"{name}: {CAMERA_FRAMES} frames of {ANT_ENVS} {w}x{h} cameras; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     rgba = a[-1][0]
     hit = float(torch.isfinite(a[-1][1]).float().mean())
     log(f"{name}: last frame {tuple(rgba.shape)} {rgba.dtype}, {hit:.4f} of the pixels hit, "
@@ -1992,11 +1498,9 @@ def camera_phase(kernels) -> None:
 
 
 def cube_phase(kernels) -> None:
-    """The franka_cube pick path at CUBE_ENVS envs under OSC: a timed run
-    with the hand-written kernels' counts read around it (2 fk launches a
-    step, no sphere world), checks of its end state, a step with host
-    syncs made errors, per-layer ops and host ms, a profile, the 4-env
-    golden of both controllers, and the grip and lift shares."""
+    """The franka_cube pick path at CUBE_ENVS envs under OSC: a step with
+    host syncs made errors, a counted run, checks of its end state, the
+    grip and lift shares, and the 4-env golden of both controllers."""
     from test_isaacgym_tpu_torch.envs.franka import STANDIN_ROOT
     from test_isaacgym_tpu_torch.envs.franka_cube import BOX_SIZE, TABLE_DIMS, FrankaCubeEnv
 
@@ -2007,13 +1511,11 @@ def cube_phase(kernels) -> None:
     ps = env.init_state
     env.rollout_fn(1)(ps)  # warm: allocator and library handles
     one = env.rollout_fn(1)
-    log(f"franka_cube: {count_ops(lambda: one(ps))} non-view PyTorch ops a step")
     assert_sync_free(lambda: one(ps), "franka_cube")
 
     run = env.rollout_fn(CUBE_STEPS)
-    (end, (gripped, box_z)), step_ms, launches = timed(lambda: run(ps), kernels, "franka_cube",
-                                                       CUBE_STEPS, CUBE_ENVS, "env")
-    expect_launches(launches, "franka_cube", "franka_cube", CUBE_STEPS)
+    end, (gripped, box_z) = counted_run(lambda: run(ps), kernels, "franka_cube", "franka_cube",
+                                        CUBE_STEPS)
     s = end.sim
     assert_finite(s, "franka_cube")
     assert_in_limits(s, env.sim.params, "franka_cube")
@@ -2034,9 +1536,6 @@ def cube_phase(kernels) -> None:
     if grip < JAX_GRIP_SHARE - CUBE_SHARE_SLACK or lift < JAX_LIFT_SHARE - CUBE_SHARE_SLACK:
         raise RuntimeError(f"franka_cube grips or lifts less than the JAX env: {grip}, {lift}")
 
-    profile_steps(env.rollout_fn(PATH_PROFILE_STEPS), end, step_ms, PATH_PROFILE_STEPS)
-    cube_layers(env, end)
-
     golden = np.load(os.path.join(STANDIN_ROOT, "franka_cube_standin.npz"))
     for ctrl in ("ik", "osc"):
         small = FrankaCubeEnv(num_envs=CUBE_GOLDEN_ENVS, controller=ctrl, device=DEV)
@@ -2056,14 +1555,13 @@ def gym_balls_phase(kernels) -> None:
     """The 1080 balls built through gym calls (one create_env, a
     create_actor a ball) in one env: GYM_BALL_STEPS steps of simulate +
     refresh_actor_root_state_tensor with the kernels' counts read around
-    them (exactly 2 sphere-world launches a step), balls1080's bounds read
-    from the wrapped root and contact tensors, the root tensor's storage
-    unchanged by the refreshes, a step with host syncs made errors, a
-    profile, the KEY_R snapshot reset restoring the first state bit for
-    bit, and the 120-ball run against gym_balls_standin.npz."""
+    them, balls1080's bounds read from the wrapped root and contact
+    tensors, the root tensor's storage unchanged by the refreshes, a step
+    with host syncs made errors, the KEY_R snapshot reset restoring the
+    first state bit for bit, and the 120-ball run against
+    gym_balls_standin.npz."""
     from test_isaacgym_tpu_torch import gymapi, gymtorch
     from test_isaacgym_tpu_torch.envs import gym_scenes
-    from test_isaacgym_tpu_torch.ops.sphere_world import LAUNCHES_PER_SOLVE
 
     name = "gym_balls1080"
     t = time.perf_counter()
@@ -2083,9 +1581,7 @@ def gym_balls_phase(kernels) -> None:
         for _ in range(GYM_BALL_STEPS):
             step()
 
-    _, step_ms, launches = timed(run, kernels, name, GYM_BALL_STEPS, F, "ball")
-    expect_launches(launches, name, "gym_balls", GYM_BALL_STEPS,
-                    sphere_world=GYM_BALL_STEPS * LAUNCHES_PER_SOLVE)
+    counted_run(run, kernels, name, "gym_balls", GYM_BALL_STEPS)
     gym.refresh_net_contact_force_tensor(sim)
     zmin, zmax = float(root[:, 2].min()), float(root[:, 2].max())
     fz = float(contact[:, 2].max())
@@ -2095,9 +1591,7 @@ def gym_balls_phase(kernels) -> None:
         raise RuntimeError(f"{name} sank, exploded or lost ground support")
     if root.data_ptr() != ptr or root.device.type != torch.device(DEV).type:
         raise RuntimeError(f"{name}: the wrapped root tensor moved or left the card")
-    log(f"{name}: {count_ops(step)} non-view PyTorch ops a step (simulate + refresh)")
     assert_sync_free(lambda: (step(), gym.set_actor_root_state_tensor(sim, root)), name)
-    profile_steps(lambda _: [step() for _ in range(PROFILE_STEPS)], None, step_ms, PROFILE_STEPS)
 
     viewer = gym.create_viewer(sim, gymapi.CameraProperties())
     gym.subscribe_viewer_keyboard_event(viewer, gymapi.KEY_R, "reset")
@@ -2130,13 +1624,11 @@ def gym_balls_phase(kernels) -> None:
 
 def gym_franka_osc_phase(kernels) -> None:
     """examples/franka_osc.py through the facade at GYM_OSC_ENVS envs on the
-    Panda stand-in: the build's seconds, GYM_OSC_STEPS steps of the
-    example's loop (refresh the rigid-body, DOF, Jacobian and mass-matrix
-    tensors, the OSC on the card, set_dof_actuation_force_tensor, simulate,
-    fetch_results) with the kernels' counts read around them (none), the
-    mean tracking error, a step with host syncs made errors, a profile, the
-    native FrankaOscEnv's ms/step beside it, and 8 envs against
-    gym_franka_osc_standin.npz."""
+    Panda stand-in: the build's seconds, a counted run of GYM_OSC_STEPS
+    steps of the example's loop (refresh the rigid-body, DOF, Jacobian and
+    mass-matrix tensors, the OSC on the card, set_dof_actuation_force_tensor,
+    simulate, fetch_results), the mean tracking error, a step with host
+    syncs made errors, and 8 envs against gym_franka_osc_standin.npz."""
     from test_isaacgym_tpu_torch import gymapi, gymtorch
     from test_isaacgym_tpu_torch.envs import gym_scenes
 
@@ -2159,8 +1651,7 @@ def gym_franka_osc_phase(kernels) -> None:
         for itr in range(GYM_OSC_STEPS):
             loop.step(itr)
 
-    _, step_ms, launches = timed(run, kernels, name, GYM_OSC_STEPS, GYM_OSC_ENVS, "env")
-    expect_launches(launches, name, "gym_franka_osc", GYM_OSC_STEPS)
+    counted_run(run, kernels, name, "gym_franka_osc", GYM_OSC_STEPS)
     s = sim.sim.state
     assert_finite(s, name)
     g = np.load(port_data("gym_franka_osc_standin.npz"))
@@ -2169,8 +1660,6 @@ def gym_franka_osc_phase(kernels) -> None:
         f"{GYM_OSC_BOUND}; the JAX facade's 8 envs {jax_err:.6f}, within {GYM_OSC_RTOL:.0%})")
     if not (err < GYM_OSC_BOUND and abs(err - jax_err) <= GYM_OSC_RTOL * jax_err):
         raise RuntimeError(f"{name}: tracking error {err:.6f} m")
-    log(f"{name}: {count_ops(lambda: loop.step(0, fetch=False))} non-view PyTorch ops a step "
-        "(refreshes, the example's OSC, set, simulate)")
     loop.refresh()
     u = loop.torque(0)[2]
 
@@ -2180,23 +1669,6 @@ def gym_franka_osc_phase(kernels) -> None:
         gym.simulate(sim)
 
     assert_sync_free(sync_free_step, name)
-    profile_steps(lambda _: [loop.step(i) for i in range(3)], None, step_ms, 3)
-
-    native = STEP_MS.get("franka")
-    if native is None:
-        from test_isaacgym_tpu_torch.envs.franka import FrankaOscEnv
-
-        env = FrankaOscEnv(num_envs=GYM_OSC_ENVS, device=DEV)
-        env.rollout_fn(2)(env.sim.state)
-        run_native = env.rollout_fn(NATIVE_STEPS)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        run_native(env.sim.state)
-        torch.cuda.synchronize()
-        native = (time.perf_counter() - t) / NATIVE_STEPS * 1e3
-        del env
-    log(f"{name}: {step_ms:.4f} ms/step through the facade; the native FrankaOscEnv "
-        f"{native:.4f} ms/step in this call: {step_ms / native:.3f}x")
 
     n, every = int(g["num_envs"]), int(g["every"])
     gym, sim, scene = gym_scenes.franka_osc(gymapi, n, sim_kw={"device": DEV})
@@ -2220,8 +1692,8 @@ def gym_interop_phase(kernels) -> None:
     """examples/interop_torch.py's scene at GYM_CAMERA_ENVS envs (a ball and a
     128 x 128 camera with enable_tensors in each): the build's seconds,
     GYM_CAMERA_FRAMES frames of simulate + render_all_camera_sensors +
-    start/end_access_image_tensors + get_camera_image_gpu_tensor with the
-    kernels' counts read around them (none); the image tensors on the card,
+    start/end_access_image_tensors + get_camera_image_gpu_tensor, counted;
+    the image tensors on the card,
     their data_address their data_ptr, aliasing the sensor's image across
     frames; a second run from the same roots bitwise equal; env 0's frame
     against gym_interop_standin.npz; a step with host syncs made errors."""
@@ -2257,11 +1729,8 @@ def gym_interop_phase(kernels) -> None:
 
     frame()  # warm
     torch.cuda.reset_peak_memory_stats()
-    (img, a), step_ms, launches = timed(run, kernels, name, GYM_CAMERA_FRAMES, GYM_CAMERA_ENVS,
-                                        "env")
-    counted_launches(kernels, name, "gym_interop", GYM_CAMERA_FRAMES)
-    log(f"{name}: {step_ms:.4f} ms/frame (physics, render of {GYM_CAMERA_ENVS * 128 * 128} rays, "
-        f"the image tensor), {GYM_CAMERA_ENVS / step_ms * 1e3:.1f} env-frames/s, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+    img, a = counted_run(run, kernels, name, "gym_interop", GYM_CAMERA_FRAMES)
+    log(f"{name}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"image tensor {tuple(img.shape)} {img.dtype} on {img.device}")
     _, b = run()
     if not all(torch.equal(x, y) for x, y in zip(a, b)):
@@ -2271,39 +1740,24 @@ def gym_interop_phase(kernels) -> None:
     g = np.load(port_data("gym_interop_standin.npz"))
     frame_check(f"{name} env 0 after {int(g['frames'])} frames", a[0][0], a[2][0], g["rgb"],
                 g["seg"])
-    log(f"{name}: {count_ops(frame)} non-view PyTorch ops a frame")
     assert_sync_free(lambda: (gym.simulate(sim), gym.refresh_actor_root_state_tensor(sim),
                               gym.set_actor_root_state_tensor(sim, root)), name)
-    profile_steps(lambda _: [frame() for _ in range(5)], None, step_ms, 5, "frame")
-
-
-def free_port() -> int:
-    """A free TCP port on this host for a process group's rendezvous."""
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
 
 
 def sharded_checks(kernels, envs_per_rank=SHARD_ENVS, steps=SHARD_STEPS,
                    worlds_per_rank=SHARD_WORLDS, ball_steps=SHARD_BALL_STEPS) -> None:
     """The sharded paths on the process group this rank joined (one rank a
-    card): the full Franka OSC step through rollout_with_obs (obs dof_pos)
-    at envs_per_rank envs a rank with the kernels' counts read around it
-    (none), its env-steps/s per rank and in aggregate, the gather's share of
-    a step (rollout_with_obs against shard_step over the same steps, in
-    turns, and the gather alone), the gathered obs against the native
-    FrankaOscEnv rollout of all the envs on rank 0 (and rank 0 alone at
-    envs_per_rank envs); then BallsEnv at worlds_per_rank worlds a rank
-    through the sphere-world kernel (exactly 2 launches a solve), the final
-    positions gathered and held to the unsharded run, the contact force
-    summed over ranks by psum_metrics. Raises on any mismatch."""
+    card): a counted run of the full Franka OSC step through
+    rollout_with_obs (obs dof_pos) at envs_per_rank envs a rank, the
+    gathered obs against the native FrankaOscEnv rollout of all the envs on
+    rank 0; then a counted run of BallsEnv at worlds_per_rank worlds a rank
+    through the sphere-world kernel, the final positions gathered and held
+    to the unsharded run, the contact force summed over ranks by
+    psum_metrics. Raises on any mismatch."""
     import torch.distributed as dist
 
     from test_isaacgym_tpu_torch.envs.balls import BallsEnv
     from test_isaacgym_tpu_torch.envs.franka import FrankaOscEnv
-    from test_isaacgym_tpu_torch.ops.sphere_world import LAUNCHES_PER_SOLVE
     from test_isaacgym_tpu_torch.parallel import mesh as pm
 
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -2325,80 +1779,24 @@ def sharded_checks(kernels, envs_per_rank=SHARD_ENVS, steps=SHARD_STEPS,
         return s.dof_pos
 
     run = pm.rollout_with_obs(step_fn, obs_fn, mesh, st, ac, pa, steps)
-    step = pm.shard_step(step_fn, mesh, st, ac, pa)
-
-    def plain():
-        s = st
-        for _ in range(steps):
-            s = step(s, ac, pa)
-        return s
-
     pm.rollout_with_obs(step_fn, obs_fn, mesh, st, ac, pa, 2)(st, ac, pa)  # warm
     dist.barrier()
-    (final, obs), ms_gather, launches = timed(lambda: run(st, ac, pa), kernels, name, steps,
-                                              envs_per_rank, "env")
-    expect_launches(launches, name, "sharded_franka", steps)
+    final, obs = counted_run(lambda: run(st, ac, pa), kernels, name, "sharded_franka", steps)
     if tuple(obs.shape) != (steps, n, 9) or not torch.isfinite(obs).all():
         raise RuntimeError(f"{name}: gathered obs {tuple(obs.shape)} not finite or not (steps, N, 9)")
     assert_finite(final, name)
-    turns = {"plain": [], "gather": [ms_gather]}
-    for which, fn in (("plain", plain), ("gather", lambda: run(st, ac, pa)), ("plain", plain)):
-        dist.barrier()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        turns[which].append((time.perf_counter() - t) / steps * 1e3)
-    ms_plain, ms_gather = (float(np.mean(turns[k])) for k in ("plain", "gather"))
-    local = obs_fn(final)
-    gather = lambda: pm.gather_obs(local, mesh=mesh)  # noqa: E731
-    gather()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(50):
-        gather()
-    torch.cuda.synchronize()
-    ms_one = (time.perf_counter() - t) / 50 * 1e3
-    worst = torch.tensor([ms_gather, ms_plain], dtype=torch.float64, device=local.device)
-    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
-    log(f"{name} rank {rank}: {ms_gather:.4f} ms/step with the gather ({turns['gather']}), "
-        f"{ms_plain:.4f} without ({turns['plain']}): {envs_per_rank / ms_gather * 1e3:.1f} "
-        f"env-steps/s a rank; the gather's share of a step {1 - ms_plain / ms_gather:+.4f} "
-        f"(difference of the runs), {ms_one:.4f} ms a gather of {tuple(local.shape)} alone "
-        f"= {ms_one / ms_gather:.4%} of a step")
     if rank == 0:
-        log(f"{name}: {world} ranks x {envs_per_rank} envs: {n / float(worst[0]) * 1e3:.1f} "
-            f"env-steps/s in aggregate with the gather (slowest rank {float(worst[0]):.4f} "
-            f"ms/step), {n / float(worst[1]) * 1e3:.1f} without")
         native = env.rollout_fn(1)
         s, want = sim.state, []
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         for _ in range(steps):
             s = native(s)
             want.append(s.dof_pos)
-        torch.cuda.synchronize()
-        ms_native = (time.perf_counter() - t) / steps * 1e3
         want = torch.stack(want)
         err = float((obs - want).abs().max()) / max(float(want.abs().max()), 1.0)
         log(f"{name}: gathered obs vs the native FrankaOscEnv rollout of {n} envs over {steps} "
-            f"steps: bitwise {torch.equal(obs, want)}, max |err| of largest magnitude {err:.3e}; "
-            f"the native {n} envs {ms_native:.4f} ms/step ({n / ms_native * 1e3:.1f} env-steps/s)")
+            f"steps: bitwise {torch.equal(obs, want)}, max |err| of largest magnitude {err:.3e}")
         if err > GOLDEN_TOL:
             raise RuntimeError(f"{name}: gathered obs depart from the native rollout: {err:.3e}")
-        if world > 1:
-            alone = FrankaOscEnv(num_envs=envs_per_rank, device=DEV)
-            one = alone.rollout_fn(steps)
-            one(alone.rollout_fn(2)(alone.sim.state))
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            one(alone.sim.state)
-            torch.cuda.synchronize()
-            ms_alone = (time.perf_counter() - t) / steps * 1e3
-            log(f"{name}: one rank alone at {envs_per_rank} envs {ms_alone:.4f} ms/step "
-                f"({envs_per_rank / ms_alone * 1e3:.1f} env-steps/s); {world} ranks in aggregate "
-                f"{(n / float(worst[0])) / (envs_per_rank / ms_alone):.3f}x it")
-            del alone, one
     del env, sim, st, ac, pa, refs, final, obs
     dist.barrier()
 
@@ -2409,15 +1807,11 @@ def sharded_checks(kernels, envs_per_rank=SHARD_ENVS, steps=SHARD_STEPS,
     bs, ba, bp = (pm.shard_env_tree(x, mesh, nw) for x in (bsim.state, bsim.actions, bsim.params))
     brun = pm.shard_step(lambda s, a, p: bsim.stepper.rollout(s, a, p, ball_steps), mesh, bs, ba, bp)
     dist.barrier()
-    out, _, launches = timed(lambda: brun(bs, ba, bp), kernels, name, ball_steps,
-                             worlds_per_rank * benv.balls_per_world, "ball")
-    expect_launches(launches, f"{name} rank {rank}", "sharded_balls", ball_steps,
-                    sphere_world=ball_steps * LAUNCHES_PER_SOLVE)
+    out = counted_run(lambda: brun(bs, ba, bp), kernels, f"{name} rank {rank}", "sharded_balls",
+                      ball_steps)
     assert_finite(out, name)
     pos = pm.gather_obs(out.root_pos, mesh=mesh)
     force = pm.psum_metrics(out.contact_force.sum((0, 1)), mesh)
-    log(f"{name} rank {rank}: {launches['sphere_world']} sphere_world launches in {ball_steps} "
-        f"steps of {worlds_per_rank} worlds")
     if rank == 0:
         ref = benv.rollout_fn(ball_steps)(bsim.state)
         _, rel = max_rel_err([ref.root_pos], [pos])
@@ -2440,6 +1834,7 @@ def sharded_phase(kernels) -> None:
 
     import torch.distributed as dist
 
+    from portbench.harness.ranks import free_port
     from test_isaacgym_tpu_torch.parallel import mesh as pm
 
     pm.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=DEV,
@@ -2517,12 +1912,11 @@ def examples_phase() -> None:
     with concurrent.futures.ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
         runs = [pool.submit(run_example_script, s, a) for s, a, _ in table]
         runs = [r.result() for r in runs]
-    failures, launches, fk = [], 0, 0
+    failures, launches = [], collections.Counter()
     for (script, argv, want), (sec, rc, lines, err) in zip(table, runs):
         res = rule.result_line(lines) or {}
         bad = example_outcome(script, want, records[(script, tuple(argv))], rc, lines)
-        launches += res.get("launches", {}).get("sphere_world", 0)
-        fk += res.get("launches", {}).get("fk", 0)
+        launches.update(res.get("launches", {}))
         stated = "the JAX run" if want is None else f"{want[0]} at {want[1]}"
         log(f"example {script} {' '.join(argv)}: exit {rc} in {sec:.1f} s, outcome "
             f"{'as stated' if not bad else 'NOT as stated'} ({stated}), sims on "
@@ -2532,8 +1926,7 @@ def examples_phase() -> None:
             log("  " + "\n  ".join(bad[:10]))
             log("  stderr: " + err[-1500:])
             failures.append(script)
-    PATH_LAUNCHES["examples"] = launches
-    PATH_FK["examples"] = fk
+    PATH_LAUNCHES["examples"] = dict(launches)
     if failures:
         raise RuntimeError(f"examples not as stated: {failures}")
 
@@ -2547,49 +1940,38 @@ def phase_timed(fn, *args):
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+def sphere_world_kernel_phase(kernels) -> dict:
+    """csrc/sphere_world.cu against its plain version _torch_solve at
+    SOLVE_TOL on random worlds (F = 96, N = 1 and 2), the dense 1080-sphere
+    cube and the piled 1080-ball state, LAUNCHES_PER_SOLVE launches a solve,
+    two solves bitwise equal; its device time on the piled state by
+    CUDA-graph replay beside its bound (portbench/harness/roofline.py) and
+    the plain version's. Returns its entry of the {"kernels": ...} line."""
+    from portbench.harness.roofline import sphere_world_bound
     from test_isaacgym_tpu_torch.envs.balls import BallsEnv
-    from test_isaacgym_tpu_torch.ops import _kernels
     from test_isaacgym_tpu_torch.ops import sphere_world as sw
 
-    t_start = time.perf_counter()
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-
-    # ---- 1. build every kernel of the path from this checkout's sources ----
+    dev = torch.device(DEV)
     t = time.perf_counter()
-    path = _kernels.build("sphere_world")
+    path = kernels.build("sphere_world")
     log(f"build: sphere_world {time.perf_counter() - t:.2f} s -> {os.path.basename(path)}")
-    for line in _kernels.build_logs.get("sphere_world", "").splitlines():
+    for line in kernels.build_logs.get("sphere_world", "").splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
-
-    # ---- 2. kernel vs plain: random worlds, the piled 1080-ball world, the
-    # dense cube; bitwise repeatability; the piled world's times ----
     for N in (1, 2):
         rargs = [random_spec(sw, 96, dev), *random_solve_args(3, N, 96, dev),
                  1 / 120, 8, 0.01, 0.0025, 0.2]
-        _kernels.launches.clear()
+        kernels.launches.clear()
         check_solve(sw, rargs, f"random F=96 N={N}")
-        per_solve = _kernels.launches["sphere_world"]
-    log(f"sphere_world launches per solve: {per_solve}")
-    if not 1 <= per_solve <= 2:
-        raise RuntimeError(f"sphere_world made {per_solve} launches in a solve, want 1 or 2")
+        if dict(kernels.launches) != {"sphere_world": sw.LAUNCHES_PER_SOLVE}:
+            raise RuntimeError(f"one solve made these launches: {dict(kernels.launches)}")
     check_repeatable(sw, rargs, "random F=96 N=2")
     dense = [random_spec(sw, 1080, dev), *(torch.as_tensor(a, device=dev) for a in dense_cube()),
              1 / 60, 9, 0.01, 0.0025, 0.2]
     check_solve(sw, dense, "dense cube F=1080")
     check_repeatable(sw, dense, "dense cube F=1080")
-    log(f"dense cube F=1080: {sphere_world_bound(dense)[2]} active pairs, "
-        f"kernel {graph_ms(lambda: sw.solve(*dense), reps=20):.4f} ms/solve")
-    pile = BallsEnv(pyramids=36, device="cuda")
+    log(f"dense cube F=1080: {sphere_world_bound(dense)[2]} active pairs")
+    pile = BallsEnv(pyramids=36, device=DEV)
     sim = pile.sim
     state = pile.rollout_fn(PILE_STEPS)(sim.state)
     st = sim.stepper
@@ -2598,29 +1980,32 @@ def main() -> int:
         state.body_pos, fd["v"], fd["w"], fd["m"], fd["I_w"], sim.params, st.h
     )
     F = args[1].shape[1]
-    err_1080 = check_solve(sw, args, f"balls F={F} after {PILE_STEPS} steps")
+    err = check_solve(sw, args, f"balls F={F} after {PILE_STEPS} steps")
     check_repeatable(sw, args, f"balls F={F}")
     bound_ms, bound_by, active = sphere_world_bound(args)
     kernel_ms = graph_ms(lambda: sw.solve(*args), reps=200)
-    log(f"  back-to-back calls (host launch overhead included; the method of "
-        f"the ms before the kernel's redesign): "
-        f"{time_ms(lambda: sw.solve(*args), reps=50):.4f} ms/solve")
     plain_ms = time_ms(lambda: sw._torch_solve(*args), reps=5, warmup=1)
-    log(f"sphere_world F={F}: {active} active pairs, kernel {kernel_ms:.4f} ms/solve, "
-        f"plain {plain_ms:.4f} ms/solve, bound {bound_ms:.6f} ms ({bound_by})")
+    log(f"sphere_world F={F}: {active} active pairs, kernel {kernel_ms:.4f} ms/solve (device, "
+        f"CUDA-graph replay), plain {plain_ms:.4f} ms/solve (back to back), bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
     log(f"  device scratch: {sw.scratch_layout(1, F, args[0].entries)[3]} bytes a world "
         f"(two dense (F, F) f32 impulse matrices: {8 * F * F})")
-    launch_shares(lambda: sw.solve(*args))
-    # one sweep's cost: the slope of ms/solve over the number of sweeps
-    t1, t17 = (graph_ms(lambda: sw.solve(*args[:10], n, *args[11:]), reps=200) for n in (1, 17))
-    log(f"  per sweep: {(t17 - t1) / 16 * 1e3:.3f} us (1 sweep {t1:.4f} ms, 17 sweeps {t17:.4f} ms)")
+    return {"name": "sphere_world", "route": "cuda",
+            "source": "test_isaacgym_tpu_torch/csrc/sphere_world.cu",
+            "replaces": "test_isaacgym_tpu/ops/sphere_world.py:334", "max_abs_err": err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
-    # ---- 3. the main path: 1080 balls, STEPS steps, counts around it only ----
-    env = BallsEnv(pyramids=36, device="cuda")
+
+def balls_phase(kernels) -> None:
+    """The 1080-ball sphere world (envs/balls.py, 36 pyramids): a counted
+    run of STEPS steps, its end-state bounds, and the 120-ball drop
+    against tests/goldens/balls_drop.npz."""
+    from test_isaacgym_tpu_torch.envs.balls import BallsEnv
+
+    env = BallsEnv(pyramids=36, device=DEV)
     run = env.rollout_fn(STEPS)
-    s, step_ms, launches = timed(lambda: run(env.sim.state), _kernels, "balls", STEPS,
-                                 env.balls_per_world, "ball")
-    expect_launches(launches, "balls", "balls", STEPS, sphere_world=STEPS * per_solve)
+    s = counted_run(lambda: run(env.sim.state), kernels, "balls", "balls", STEPS)
     assert_finite(s, "balls")
     z = s.root_pos[0, :, 2]
     zmin, zmax = float(z.min()), float(z.max())
@@ -2629,29 +2014,43 @@ def main() -> int:
     if not (zmin > 0.15 and zmax < 3.0 and fz > 0):
         raise RuntimeError("the 1080-ball world sank, exploded or lost ground support")
 
-    profile_steps(env.rollout_fn(PROFILE_STEPS), s, step_ms)
-
-    # ---- 4. right answers: the 120-ball drop against the committed golden ----
     golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "tests", "goldens", "balls_drop.npz"))["pos"]
-    small = BallsEnv(pyramids=4, device="cuda")
+    small = BallsEnv(pyramids=4, device=DEV)
     worst = golden_err({"pos": golden}, small.sim.state, lambda s: {"pos": s.root_pos[0]},
                        small.rollout_fn(10))
     log(f"120-ball drop vs golden: max |err| of largest magnitude {worst:.3e}")
     if worst > GOLDEN_TOL:
         raise RuntimeError(f"120-ball drop departs from the golden: {worst:.3e} > {GOLDEN_TOL}")
 
-    log(f"phase kernel checks, balls and the 120-ball drop: {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 5. the fk kernel at the Franka path's shape, then the flagship
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from test_isaacgym_tpu_torch.ops import _kernels
+    from test_isaacgym_tpu_torch.ops import sphere_world as sw
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+
+    # ---- 1. the sphere-world kernel against its plain version, then the
+    # 1080 balls through their entry points and the 120-ball drop ----
+    sw_entry = phase_timed(sphere_world_kernel_phase, _kernels)
+    phase_timed(balls_phase, _kernels)
+
+    # ---- 2. the fk kernel at the Franka path's shape, then the flagship
     # Franka OSC path, with its own counts ----
     fk_entry = phase_timed(fk_kernel_phase, _kernels)
     phase_timed(franka_phase, _kernels)
 
-    # ---- 6. the franka_cube pick path (the contact table), with its own counts ----
+    # ---- 3. the franka_cube pick path (the contact table), with its own counts ----
     phase_timed(cube_phase, _kernels)
 
-    # ---- 7. attractors, the UAV-car pursuit, the neighbor-list worlds (the
+    # ---- 4. attractors, the UAV-car pursuit, the neighbor-list worlds (the
     # mixed one beside the sphere-world kernel), each with its own counts,
     # and the TIG_DEBUG checks ----
     phase_timed(attractor_phase, _kernels)
@@ -2661,7 +2060,7 @@ def main() -> int:
     log(f"sphere_world vs plain on the mixed world: max |err| {err_mixed:.3e}")
     phase_timed(debug_phase)
 
-    # ---- 8. convex hulls and terrain: kuka_bin.py's objects on a ground
+    # ---- 5. convex hulls and terrain: kuka_bin.py's objects on a ground
     # and over the AnymalTerrain map (no kernel), and the 1080 balls over a
     # bowl (the kernel without ground), each with its own counts ----
     from test_isaacgym_tpu_torch.envs import pile
@@ -2674,16 +2073,16 @@ def main() -> int:
     err_terrain = phase_timed(balls_terrain_phase, _kernels, sw)
     log(f"sphere_world vs plain on the balls over terrain: max |err| {err_terrain:.3e}")
 
-    # ---- 9. SDF contact: the nut spun down the bolt, and the arm-driven
+    # ---- 6. SDF contact: the nut spun down the bolt, and the arm-driven
     # screw FSM, each with its own counts ----
     phase_timed(nut_bolt_phase, _kernels)
     phase_timed(franka_nut_bolt_phase, _kernels)
 
-    # ---- 10. soft bodies: the XPBD tet solve of examples/soft_body.py,
+    # ---- 7. soft bodies: the XPBD tet solve of examples/soft_body.py,
     # with its own counts ----
     xpbd_entry = phase_timed(soft_body_phase, _kernels)
 
-    # ---- 11. the RL vec-envs and the renderer: the Ant and the Franka
+    # ---- 8. the RL vec-envs and the renderer: the Ant and the Franka
     # reach through make(), each with its own counts; bench.py's render
     # config; a camera on every Ant env ----
     phase_timed(ant_phase, _kernels)
@@ -2691,41 +2090,27 @@ def main() -> int:
     phase_timed(render_phase, _kernels)
     phase_timed(camera_phase, _kernels)
 
-    # ---- 12. the gymapi facade as the reference's scripts drive it: the
+    # ---- 9. the gymapi facade as the reference's scripts drive it: the
     # 1080 balls through gym calls (the kernel), franka_osc.py's loop, and
     # interop_torch.py's camera tensors, each with its own counts ----
     phase_timed(gym_balls_phase, _kernels)
     phase_timed(gym_franka_osc_phase, _kernels)
     phase_timed(gym_interop_phase, _kernels)
 
-    # ---- 13. env-axis sharding: the Franka OSC and balls paths through
+    # ---- 10. env-axis sharding: the Franka OSC and balls paths through
     # parallel/mesh.py at world size 1 over NCCL, each with its own counts ----
     phase_timed(sharded_phase, _kernels)
 
-    # ---- 14. the repository's example scripts, unchanged, through the
+    # ---- 11. the repository's example scripts, unchanged, through the
     # port's runner, each in its own process on the card ----
     phase_timed(examples_phase)
 
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
-    log("sphere_world launches by main path: "
-        + ", ".join(f"{k} {v}" for k, v in PATH_LAUNCHES.items()))
-    log("fk launches by main path: " + ", ".join(f"{k} {v}" for k, v in PATH_FK.items()))
-    log("xpbd launches by main path: " + ", ".join(f"{k} {v}" for k, v in PATH_XPBD.items()))
-    log(json.dumps({"kernels": [{
-        "name": "sphere_world",
-        "route": "cuda",
-        "source": "test_isaacgym_tpu_torch/csrc/sphere_world.cu",
-        "replaces": "test_isaacgym_tpu/ops/sphere_world.py:334",
-        "launches": (launches["sphere_world"] + PATH_LAUNCHES[f"sharded_balls1x{SHARD_WORLDS}"]
-                     + PATH_LAUNCHES["examples"]),
-        "max_abs_err": err_1080,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }, dict(fk_entry, launches=sum(PATH_FK.values())),
-        dict(xpbd_entry, launches=sum(PATH_XPBD.values()))]}))
+    for what, launches in PATH_LAUNCHES.items():
+        log(f"kernel launches of {what}: {launches}")
+    log(json.dumps({"kernels": [
+        dict(entry, launches=sum(n.get(entry["name"], 0) for n in PATH_LAUNCHES.values()))
+        for entry in (sw_entry, fk_entry, xpbd_entry)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -6,8 +6,17 @@ use into `build/torch_kernels/` at the repository root (git-ignored), under a
 name keyed on the hash of its source and flags: a fresh checkout builds what
 it runs, and an edited source rebuilds. Nothing here runs at import time.
 
-`launches` counts kernel launches by kernel name. Each wrapper adds to it
-right after the launches it made succeeded, and nowhere else, so a run can
+A wrapper launches its kernel through `entry` (the ctypes function, its
+types set once), `inputs` (the one check of what a kernel takes: float32,
+exact shapes, one CUDA device, no grad, as no kernel has a backward; the
+tensors come back contiguous, for the caller to keep alive until the launch
+is queued) and `launch` (the device made current, as a library launches on
+the current one; its current stream passed last; a nonzero return raised).
+A kernel's own limits, its tables' device and its argument order stay in
+its wrapper.
+
+`launches` counts kernel launches by kernel name. `launch` adds to it right
+after the launches it made succeeded, and nothing else does, so a run can
 show that its main path went through the kernels.
 """
 from __future__ import annotations
@@ -20,6 +29,8 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC.parents[1] / "build" / "torch_kernels"
@@ -82,3 +93,42 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _libs[name] = ctypes.CDLL(str(build(name)))
     return lib
+
+
+def entry(kernel: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """The ctypes function `symbol` of csrc/<kernel>.cu, its argument and
+    result types set at its first use."""
+    fn = getattr(load(kernel), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+    return fn
+
+
+def inputs(kernel: str, dev: torch.device, specs) -> list:
+    """The tensors of `specs`, (name, tensor, shape) triples, made contiguous;
+    raises ValueError before any library is loaded on the first that is not
+    float32 of that shape on `dev`, a CUDA device, or that requires grad."""
+    out = []
+    for name, t, shape in specs:
+        shape = tuple(shape)
+        if (dev.type != "cuda" or t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != shape or t.requires_grad):
+            raise ValueError(
+                f"{kernel} kernel: {name} must be float32 {shape} on one CUDA device ({dev}) "
+                f"and not a tensor that requires grad (the kernel has no backward); got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                + (" that requires grad" if t.requires_grad else ""))
+        out.append(t.contiguous())
+    return out
+
+
+def launch(kernel: str, fn, dev: torch.device, *args, count: int = 1) -> None:
+    """fn(*args, stream) with `dev` the current device and its current
+    stream's handle last; raises RuntimeError on a nonzero return, else
+    adds `count` to launches[kernel]."""
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    launches[kernel] += count

@@ -25,6 +25,7 @@ depth, PhysX AVERAGE material combine.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -348,16 +349,12 @@ def scratch_layout(N: int, F: int, entries: int):
     return at_rows, at_lams, at_nbs, up(at_nbs + N * entries * 2)
 
 
-def _library():
-    lib = _kernels.load("sphere_world")
-    if lib.sw_solve.argtypes is None:
-        lib.sw_solve.argtypes = _ARGTYPES
-        lib.sw_solve.restype = ctypes.c_int
-        lib.sw_max_spheres.argtypes = []
-        lib.sw_max_spheres.restype = ctypes.c_int
-        if lib.sw_max_spheres() != MAX_SPHERES:
-            raise RuntimeError("csrc/sphere_world.cu kMaxF differs from MAX_SPHERES")
-    return lib
+@functools.cache
+def _solve_entry():
+    """sw_solve, once the library's kMaxF was checked against MAX_SPHERES."""
+    if _kernels.entry("sphere_world", "sw_max_spheres", ())() != MAX_SPHERES:
+        raise RuntimeError("csrc/sphere_world.cu kMaxF differs from MAX_SPHERES")
+    return _kernels.entry("sphere_world", "sw_solve", _ARGTYPES)
 
 
 def _cuda_solve(
@@ -372,18 +369,11 @@ def _cuda_solve(
             f"MAX_SPHERES = {MAX_SPHERES}"
         )
     dev = pos.device
-    for name, t, shape in (
+    pos, vel, omega, radius, inv_m, inv_i, mu, rest = _kernels.inputs("sphere_world", dev, (
         ("pos", pos, (N, F, 3)), ("vel", vel, (N, F, 3)), ("omega", omega, (N, F, 3)),
         ("radius", radius, (N, F)), ("inv_m", inv_m, (N, F)), ("inv_i", inv_i, (N, F)),
         ("mu", mu, (N, F)), ("rest", rest, (N, F)),
-    ):
-        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(
-                f"sphere_world kernel: {name} must be float32 {shape} on {dev}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"sphere_world kernel: {name} must be contiguous")
+    ))
     if iters < 1:
         raise ValueError(f"sphere_world kernel: iters must be >= 1, got {iters}")
     bits, row_start = spec.allow_bits, spec.row_start
@@ -400,27 +390,23 @@ def _cuda_solve(
             f"sphere_world kernel: {N} worlds of {spec.entries} allowed ordered "
             f"pairs need {nbytes} bytes of scratch, more than the {card} of {dev}"
         )
-    lib = _library()
+    fn = _solve_entry()
     # one scratch allocation at the worst case (every allowed pair live)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     base = scratch.data_ptr()
     vel_o, om_o, cf_o = torch.empty((3, N, F, 3), dtype=torch.float32, device=dev).unbind(0)
     pn = spec.plane_n
-    # the library launches on the current device: make it the tensors' one
-    with torch.cuda.device(dev):
-        err = lib.sw_solve(
-            pos.data_ptr(), vel.data_ptr(), omega.data_ptr(), radius.data_ptr(),
-            inv_m.data_ptr(), inv_i.data_ptr(), mu.data_ptr(), rest.data_ptr(),
-            bits.data_ptr(), row_start.data_ptr(), spec.entries,
-            base, base + at_rows, base + at_lams, base + at_nbs,
-            vel_o.data_ptr(), om_o.data_ptr(), cf_o.data_ptr(),
-            N, F, iters,
-            h, contact_offset, slop, bounce_thresh,
-            float(pn[0]), float(pn[1]), float(pn[2]), float(spec.plane_d),
-            float(spec.plane_friction), float(spec.plane_restitution),
-            1 if spec.has_ground else 0, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"sphere_world kernel launch failed: CUDA error {err}")
-    _kernels.launches["sphere_world"] += LAUNCHES_PER_SOLVE
+    _kernels.launch(
+        "sphere_world", fn, dev,
+        pos.data_ptr(), vel.data_ptr(), omega.data_ptr(), radius.data_ptr(),
+        inv_m.data_ptr(), inv_i.data_ptr(), mu.data_ptr(), rest.data_ptr(),
+        bits.data_ptr(), row_start.data_ptr(), spec.entries,
+        base, base + at_rows, base + at_lams, base + at_nbs,
+        vel_o.data_ptr(), om_o.data_ptr(), cf_o.data_ptr(),
+        N, F, iters,
+        h, contact_offset, slop, bounce_thresh,
+        float(pn[0]), float(pn[1]), float(pn[2]), float(spec.plane_d),
+        float(spec.plane_friction), float(spec.plane_restitution),
+        1 if spec.has_ground else 0, count=LAUNCHES_PER_SOLVE,
+    )
     return vel_o, om_o, cf_o

@@ -261,14 +261,6 @@ _ARGTYPES = (
 )
 
 
-def _library():
-    lib = _kernels.load("fk")
-    if lib.fk_forward.argtypes is None:
-        lib.fk_forward.argtypes = _ARGTYPES
-        lib.fk_forward.restype = ctypes.c_int
-    return lib
-
-
 def _fk_cuda(topo: ArtTopo, *args):
     """One launch of csrc/fk.cu on the current stream for float32 CUDA
     tensors; raises on anything else. Leading axes broadcast as in the plain
@@ -279,40 +271,24 @@ def _fk_cuda(topo: ArtTopo, *args):
         args = tuple(a.expand(lead + a.shape[-1:]) for a in args)
     dev = args[0].device
     L, D = topo.num_links, topo.num_dofs
-    for name, t, width in zip(
-        ("root_pos", "root_quat", "root_linvel", "root_angvel", "dof_pos", "dof_vel"),
-        args, (3, 4, 3, 3, D, D),
-    ):
-        if t.device != dev or dev.type != "cuda" or t.dtype != torch.float32:
-            raise ValueError(
-                f"fk kernel: {name} must be float32 on one CUDA device, "
-                f"got {t.dtype} on {t.device}"
-            )
-        if t.shape[-1] != width:
-            raise ValueError(f"fk kernel: {name} must end in {width}, got {tuple(t.shape)}")
-        if t.requires_grad:
-            raise ValueError(f"fk kernel: {name} requires grad; the kernel has no backward")
+    root_pos, root_quat, root_lin, root_ang, q, qd = _kernels.inputs("fk", dev, (
+        (name, t, lead + (width,)) for name, t, width in zip(
+            ("root_pos", "root_quat", "root_linvel", "root_angvel", "dof_pos", "dof_vel"),
+            args, (3, 4, 3, 3, D, D))))
     if topo.fk_ints.device != dev:
         raise ValueError(f"fk kernel: the topology lies on {topo.fk_ints.device}, not {dev}")
-    root_pos, root_quat, root_lin, root_ang, q, qd = (a.contiguous() for a in args)
     pos, lin, ang = torch.empty((3,) + lead + (L, 3), dtype=torch.float32, device=dev).unbind(0)
     quat = torch.empty(lead + (L, 4), dtype=torch.float32, device=dev)
     B = math.prod(lead)
     if B == 0:  # no batch element: nothing to launch
         return pos, quat, lin, ang
-    lib = _library()
-    # the library launches on the current device: make it the tensors' one
-    with torch.cuda.device(dev):
-        err = lib.fk_forward(
-            topo.fk_ints.data_ptr(), topo.fk_floats.data_ptr(), L, D, B,
-            root_pos.data_ptr(), root_quat.data_ptr(), root_lin.data_ptr(),
-            root_ang.data_ptr(), q.data_ptr(), qd.data_ptr(),
-            pos.data_ptr(), quat.data_ptr(), lin.data_ptr(), ang.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fk kernel launch failed: CUDA error {err}")
-    _kernels.launches["fk"] += 1
+    _kernels.launch(
+        "fk", _kernels.entry("fk", "fk_forward", _ARGTYPES), dev,
+        topo.fk_ints.data_ptr(), topo.fk_floats.data_ptr(), L, D, B,
+        root_pos.data_ptr(), root_quat.data_ptr(), root_lin.data_ptr(),
+        root_ang.data_ptr(), q.data_ptr(), qd.data_ptr(),
+        pos.data_ptr(), quat.data_ptr(), lin.data_ptr(), ang.data_ptr(),
+    )
     return pos, quat, lin, ang
 
 

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -577,45 +578,34 @@ class SoftStepper:
         alpha_d, alpha_h, gamma = self.materials(params, h)
         I = params.soft_damping.shape[-1]
         B, S = body_pos.shape[1], params.shape_pos.shape[1]
-        inputs = (
+        # the checked inputs, contiguous, alive until the launch is queued
+        (soft_pos, soft_vel, body_pos, body_quat, shape_pos, shape_size, damping, gravity,
+         alpha_d, alpha_h, gamma) = _kernels.inputs("xpbd", dev, (
             ("soft_pos", soft_pos, (N, V, 3)), ("soft_vel", soft_vel, (N, V, 3)),
             ("body_pos", body_pos, (N, B, 3)), ("body_quat", body_quat, (N, B, 4)),
             ("shape_pos", params.shape_pos, (N, S, 3)), ("shape_size", params.shape_size, (N, S, 3)),
             ("soft_damping", params.soft_damping, (N, I)), ("gravity", gravity, (3,)),
             ("alpha_d", alpha_d, (N, T)), ("alpha_h", alpha_h, (N, T)), ("gamma", gamma, (N, T)),
-        )
-        for name, t, shape in inputs:
-            if t.device != dev or dev.type != "cuda" or t.dtype != torch.float32:
-                raise ValueError(f"xpbd kernel: {name} must be float32 on one CUDA device, "
-                                 f"got {t.dtype} on {t.device}")
-            if tuple(t.shape) != shape:
-                raise ValueError(f"xpbd kernel: {name} must be {shape}, got {tuple(t.shape)}")
-            if t.requires_grad:
-                raise ValueError(f"xpbd kernel: {name} requires grad; the kernel has no backward")
+        ))
         if x.tets.device != dev:
             raise ValueError(f"xpbd kernel: the mesh's tables lie on {x.tets.device}, not {dev}")
-        a = {name: t.contiguous() for name, t, _ in inputs}  # alive until the launch is queued
         out_pos, out_vel = torch.empty((2, N, V, 3), dtype=torch.float32, device=dev).unbind(0)
         if N == 0:  # no env: nothing to launch
             return out_pos, out_vel
-        lib = _library()
+        fn = _launch_entry()
         nx, ny, nz = self.plane_n_host
         with span("soft.iterations"):
-            # the library launches on the current device: make it the tensors' one
-            with torch.cuda.device(dev):
-                err = lib.xpbd_launch(
-                    *(t.data_ptr() for t in x), V, T, M, x.planes.shape[1],
-                    *(a[k].data_ptr() for k in ("soft_pos", "soft_vel", "alpha_d", "alpha_h",
-                                                "gamma", "soft_damping")), I,
-                    a["body_pos"].data_ptr(), a["body_quat"].data_ptr(), B,
-                    a["shape_pos"].data_ptr(), a["shape_size"].data_ptr(), S,
-                    a["gravity"].data_ptr(), out_pos.data_ptr(), out_vel.data_ptr(), N,
-                    self.iters, int(self.has_ground), h, nx, ny, nz, self.plane_d, self.margin,
-                    self.friction, torch.cuda.current_stream(dev).cuda_stream,
-                )
-        if err != 0:
-            raise RuntimeError(f"xpbd kernel launch failed: CUDA error {err}")
-        _kernels.launches["xpbd"] += 1
+            _kernels.launch(
+                "xpbd", fn, dev,
+                *(t.data_ptr() for t in x), V, T, M, x.planes.shape[1],
+                soft_pos.data_ptr(), soft_vel.data_ptr(), alpha_d.data_ptr(), alpha_h.data_ptr(),
+                gamma.data_ptr(), damping.data_ptr(), I,
+                body_pos.data_ptr(), body_quat.data_ptr(), B,
+                shape_pos.data_ptr(), shape_size.data_ptr(), S,
+                gravity.data_ptr(), out_pos.data_ptr(), out_vel.data_ptr(), N,
+                self.iters, int(self.has_ground), h, nx, ny, nz, self.plane_d, self.margin,
+                self.friction,
+            )
         return out_pos, out_vel
 
     def iterate(self, p, lam_d, lam_h, c: _Consts):
@@ -756,19 +746,14 @@ _ARGTYPES = (
 )
 
 
-def _library():
-    lib = _kernels.load("xpbd")
-    if lib.xpbd_launch.argtypes is None:
-        lib.xpbd_launch.argtypes = _ARGTYPES
-        lib.xpbd_launch.restype = ctypes.c_int
-        for fn, args in ((lib.xpbd_shared_bytes, [_I] * 3), (lib.xpbd_threads, [_I]),
-                         (lib.xpbd_blocks_per_sm, [_I] * 3)):
-            fn.argtypes = args
-        lib.xpbd_shared_bytes.restype = ctypes.c_longlong
-        lib.xpbd_threads.restype = lib.xpbd_blocks_per_sm.restype = ctypes.c_int
-        if lib.xpbd_shared_bytes(195, 570, 1) != xpbd_shared_bytes(195, 570, 1):
-            raise RuntimeError("csrc/xpbd.cu's shared-memory layout differs from xpbd_shared_bytes")
-    return lib
+@functools.cache
+def _launch_entry():
+    """xpbd_launch, once the library's shared-memory layout was checked
+    against xpbd_shared_bytes."""
+    sized = _kernels.entry("xpbd", "xpbd_shared_bytes", [_I] * 3, ctypes.c_longlong)
+    if sized(195, 570, 1) != xpbd_shared_bytes(195, 570, 1):
+        raise RuntimeError("csrc/xpbd.cu's shared-memory layout differs from xpbd_shared_bytes")
+    return _kernels.entry("xpbd", "xpbd_launch", _ARGTYPES)
 
 
 def _norm(x, keepdim=False):

@@ -26,6 +26,7 @@ not; a velocity is its substep's displacement over h, so the positions'
 last-bit rounding comes back 1/h larger in it. This file imports no JAX
 package: tests/test_torch_soft.py holds the plain version to the JAX one.
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -340,7 +341,8 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="requires grad"):
         st.substep(args[0].clone().requires_grad_(True), *args[1:])
     assert _kernels.launches["xpbd"] == before
-    assert soft._library().xpbd_blocks_per_sm(195, 570, 1) >= 2
+    blocks_per_sm = _kernels.entry("xpbd", "xpbd_blocks_per_sm", [ctypes.c_int] * 3)
+    assert blocks_per_sm(195, 570, 1) >= 2
 
 
 @pytest.mark.cuda

@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
-"""Run some of chip_smoke.py's phases of one checkout, on the card.
+"""Run some of chip_smoke.py's check phases of one checkout, on the card.
 
     python3 tools/chip_phases.py ROOT PHASE [PHASE ...]
 
 ROOT is a checkout of this repository (this one, or an unpacked earlier
-commit); PHASE is the name of a phase function of ROOT's chip_smoke.py that
-takes the kernel module (box_phase, pile_phase hull, ...):
+commit); PHASE names a phase of ROOT's chip_smoke.py:
 
+    sphere_world   sphere_world_kernel_phase: the kernel against its plain
+                   version, its graph-replay time and bound
+    balls          balls_phase: the 1080 balls and the 120-ball drop golden
+    fk             fk_kernel_phase: the fk kernel at the Franka path's shape
+    franka         franka_phase: the Franka OSC flagship, 4096 envs
+    franka_cube    cube_phase: the franka_cube pick path, 4096 envs
+    attractor      attractor_phase: examples/franka_attractor.py, 4096 envs
+    uav_car        uav_phase: the UAV-car pursuit, 4096 envs
     box            box_phase: the 1080-box neighbor-list world
     mixed          mixed_phase: 100 spheres beside 100 boxes
+    debug          debug_phase: the TIG_DEBUG checks
     hull_pile      pile_phase without terrain (4096 envs)
     terrain        pile_phase over the AnymalTerrain map (4096 envs)
     balls_terrain  balls_terrain_phase: the 1080 balls over a bowl
@@ -22,20 +30,21 @@ takes the kernel module (box_phase, pile_phase hull, ...):
     gym_balls      gym_balls_phase: the 1080 balls through the gymapi facade
     gym_franka_osc gym_franka_osc_phase: examples/franka_osc.py's loop, 4096 envs
     gym_interop    gym_interop_phase: examples/interop_torch.py, 1024 cameras
+    examples       examples_phase: the repository's example scripts
     sharded        sharded_checks on a rank a visible card (NCCL): the full
                    Franka OSC step at 1024 envs a rank for 50 steps through
                    rollout_with_obs against the native rollout of all the
-                   envs and one rank alone, and one world of 1080 balls a
-                   rank against the unsharded run
+                   envs, and one world of 1080 balls a rank against the
+                   unsharded run
 
-`sharded` spawns this script once a card as `ROOT sharded_rank`, with
-RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE and MASTER_ADDR/MASTER_PORT
-set; a rank that fails or hangs past RANK_TIMEOUT fails the phase.
+`sharded` runs rank 0 in this process and spawns ranks 1.. as
+`ROOT sharded_rank` through portbench/harness/ranks.py's `spawn` (one
+process a card, RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE and
+MASTER_ADDR/MASTER_PORT set); a rank that fails, or outlives rank 0 by
+ranks.RANK_TIMEOUT, fails the phase.
 
-The kernels are built from ROOT's sources first. Each phase prints what it
-prints in chip_smoke.py (ms/step, rates, busy share, ops a step, its
-checks). Two trees compared in one call on one card, as parent, change,
-change, parent, give versions of a path measured on the same host.
+The kernels are built from ROOT's sources first. Each phase runs its checks
+and raises on the first that fails; the script logs each phase's seconds.
 """
 import os
 import subprocess
@@ -43,35 +52,45 @@ import sys
 import time
 
 SHARDED_STEPS, SHARDED_WORLDS = 50, 1  # a rank's steps and ball worlds
-RANK_TIMEOUT = 600  # seconds the ranks of `sharded` may take in all
 
 
-def spawn_ranks(root, world):
-    """Run `ROOT sharded_rank` in `world` processes, a card each; raise
-    unless every rank exits 0 within RANK_TIMEOUT."""
-    import chip_smoke as cs
+def terrain(cs, kernels) -> None:
+    """pile_phase over the AnymalTerrain map."""
+    from test_isaacgym_tpu_torch.envs import pile
 
-    port = cs.free_port()
-    procs = []
-    for r in range(world):
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-u", os.path.abspath(__file__), root, "sharded_rank"], env=env))
-    deadline = time.monotonic() + RANK_TIMEOUT
+    cs.pile_phase(kernels, "terrain4096", pile.anymal_terrain())
+
+
+def sharded_rank(cs, kernels) -> None:
+    """This process's rank of `sharded`, on the process group the
+    environment names."""
+    import torch.distributed as dist
+
+    from test_isaacgym_tpu_torch.parallel import mesh as pm
+
+    pm.init_distributed()
     try:
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1))
-    except subprocess.TimeoutExpired:
-        raise SystemExit(f"sharded: a rank ran past {RANK_TIMEOUT} s")
+        cs.sharded_checks(kernels, steps=SHARDED_STEPS, worlds_per_rank=SHARDED_WORLDS)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    codes = [p.returncode for p in procs]
+        dist.destroy_process_group()
+
+
+def sharded(cs, kernels, root) -> None:
+    """Rank 0 here and one spawned rank a further card; raises unless every
+    rank passes."""
+    import torch
+
+    from portbench.harness import ranks
+
+    world = torch.cuda.device_count()
+    cs.log(f"sharded: {world} ranks, one a card")
+    procs = ranks.spawn([os.path.abspath(__file__), root, "sharded_rank"], world)
+    try:
+        sharded_rank(cs, kernels)
+    finally:
+        codes = ranks.join(procs)
     if any(codes):
-        raise SystemExit(f"sharded: ranks exited {codes}")
+        raise SystemExit(f"sharded: ranks 1.. exited {codes}")
 
 
 def main(root, phases):
@@ -79,68 +98,53 @@ def main(root, phases):
     sys.path.insert(0, root)
     import chip_smoke as cs
     import torch
-    from test_isaacgym_tpu_torch.ops import _kernels
+    from test_isaacgym_tpu_torch.ops import _kernels as k
     from test_isaacgym_tpu_torch.ops import sphere_world as sw
 
     if not torch.cuda.is_available():
         print("chip_phases: no CUDA device", file=sys.stderr)
         return 2
+    table = {
+        "sphere_world": lambda: cs.sphere_world_kernel_phase(k),
+        "balls": lambda: cs.balls_phase(k),
+        "fk": lambda: cs.fk_kernel_phase(k),
+        "franka": lambda: cs.franka_phase(k),
+        "franka_cube": lambda: cs.cube_phase(k),
+        "attractor": lambda: cs.attractor_phase(k),
+        "uav_car": lambda: cs.uav_phase(k),
+        "box": lambda: cs.box_phase(k),
+        "mixed": lambda: cs.mixed_phase(k, sw),
+        "debug": cs.debug_phase,
+        "hull_pile": lambda: cs.pile_phase(k, "hull_pile4096"),
+        "terrain": lambda: terrain(cs, k),
+        "balls_terrain": lambda: cs.balls_terrain_phase(k, sw),
+        "nut_bolt": lambda: cs.nut_bolt_phase(k),
+        "franka_nut_bolt": lambda: cs.franka_nut_bolt_phase(k),
+        "soft_body": lambda: cs.soft_body_phase(k),
+        "ant": lambda: cs.ant_phase(k),
+        "franka_reach": lambda: cs.reach_phase(k),
+        "render": lambda: cs.render_phase(k),
+        "ant_camera": lambda: cs.camera_phase(k),
+        "gym_balls": lambda: cs.gym_balls_phase(k),
+        "gym_franka_osc": lambda: cs.gym_franka_osc_phase(k),
+        "gym_interop": lambda: cs.gym_interop_phase(k),
+        "examples": cs.examples_phase,
+        "sharded": lambda: sharded(cs, k, root),
+        "sharded_rank": lambda: sharded_rank(cs, k),
+    }
+    unknown = [name for name in phases if name not in table]
+    if unknown:
+        raise SystemExit(f"unknown phases {unknown}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cs.log(cs.card_line())
     cs.log(f"tree {root} at {subprocess.run(['git', '-C', root, 'log', '-1', '--format=%h'], capture_output=True, text=True).stdout.strip() or 'an unpacked archive'}")
     t = time.perf_counter()
-    _kernels.build("sphere_world")
+    k.build("sphere_world")
     cs.log(f"build: sphere_world {time.perf_counter() - t:.2f} s")
     for name in phases:
         t = time.perf_counter()
-        if name == "box":
-            cs.box_phase(_kernels)
-        elif name == "mixed":
-            cs.mixed_phase(_kernels, sw)
-        elif name == "hull_pile":
-            cs.pile_phase(_kernels, "hull_pile4096")
-        elif name == "terrain":
-            from test_isaacgym_tpu_torch.envs import pile
-
-            cs.pile_phase(_kernels, "terrain4096", pile.anymal_terrain())
-        elif name == "balls_terrain":
-            cs.balls_terrain_phase(_kernels, sw)
-        elif name == "nut_bolt":
-            cs.nut_bolt_phase(_kernels)
-        elif name == "franka_nut_bolt":
-            cs.franka_nut_bolt_phase(_kernels)
-        elif name == "soft_body":
-            cs.soft_body_phase(_kernels)
-        elif name == "ant":
-            cs.ant_phase(_kernels)
-        elif name == "franka_reach":
-            cs.reach_phase(_kernels)
-        elif name == "render":
-            cs.render_phase(_kernels)
-        elif name == "ant_camera":
-            cs.camera_phase(_kernels)
-        elif name == "gym_balls":
-            cs.gym_balls_phase(_kernels)
-        elif name == "gym_franka_osc":
-            cs.gym_franka_osc_phase(_kernels)
-        elif name == "gym_interop":
-            cs.gym_interop_phase(_kernels)
-        elif name == "sharded":
-            world = torch.cuda.device_count()
-            cs.log(f"sharded: {world} ranks, one a card")
-            spawn_ranks(root, world)
-        elif name == "sharded_rank":
-            import torch.distributed as dist
-
-            from test_isaacgym_tpu_torch.parallel import mesh as pm
-
-            pm.init_distributed()
-            try:
-                cs.sharded_checks(_kernels, steps=SHARDED_STEPS, worlds_per_rank=SHARDED_WORLDS)
-            finally:
-                dist.destroy_process_group()
-        else:
-            raise SystemExit(f"unknown phase {name!r}")
+        table[name]()
         cs.log(f"phase {name}: {time.perf_counter() - t:.1f} s")
     return 0
 
