@@ -7,8 +7,10 @@ Builds the port's hand-written CUDA kernels (csrc/*.cu) from this checkout
 and holds each against its plain PyTorch version on the card: the
 sphere-world solve on random worlds, the piled 1080-ball state and a dense
 1080-sphere cube whose contact lists spill out of shared memory; the forward
-kinematics (csrc/fk.cu) at the Franka path's shape; one XPBD substep
-(csrc/xpbd.cu) of the soft_body scene mid-impact. Two launches on the same
+kinematics (csrc/fk.cu) at the Franka path's shape; the batched SPD solve
+(csrc/chol.cu) at the shapes the Franka, balls and soft_body paths give it,
+bit for bit; one XPBD substep (csrc/xpbd.cu) of the soft_body scene
+mid-impact. Two launches on the same
 inputs must give the same bits. Each kernel's device time a call, replayed
 from a CUDA graph, is printed beside its bound and its plain version's time:
 the one measurement here, the source of the kernel table in PERF.md.
@@ -54,7 +56,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 SOLVE_TOL = 1e-5  # kernel vs plain, of the largest magnitude
-FK_GRAPH_CALLS = 20  # fk calls captured in the graph that times the fk kernel
+GRAPH_CALLS = 20  # kernel calls captured in the graph that times the fk or chol kernel
 STEPS = 400  # the 1080-ball run
 PILE_STEPS = 120  # steps before capturing the piled F=1080 solve inputs
 # the goldens' rule on the card: the 120-ball drop vs tests/goldens/balls_drop.npz
@@ -250,16 +252,25 @@ DEV = "cuda"
 # calls it in every substep but the first, which reuses the body cache, and
 # the refresh once a step, for each articulation group (2 substeps: 2 a
 # step; soft_body's press plate, 3 substeps: 3). xpbd (csrc/xpbd.cu, one a
-# SoftStepper.substep): one a substep of a scene with soft bodies. A new
-# kernel adds its key to the paths that launch it.
+# SoftStepper.substep): one a substep of a scene with soft bodies. chol
+# (csrc/chol.cu, one a call of utils/linalg.spd_solve or spd_inv with n <= 24):
+# phase A's solve each substep for each articulation group, the attractor
+# impulse's two, phase B's 3 x 3 solve of the free bodies, phase C's
+# inverses (a group with contact rows, the free bodies of a contact table or
+# a neighbor world) each substep, and the OSC controls' solves each step
+# (franka: 2 substeps + 2 control = 4; balls: 1). A new kernel adds its key
+# to the paths that launch it.
 EXPECTED_LAUNCHES = {
-    "balls": {"sphere_world": 2}, "franka": {"fk": 2}, "franka_cube": {"fk": 2},
-    "attractor": {"fk": 2}, "uav_car": {}, "box": {}, "mixed": {"sphere_world": 4},
-    "pile": {}, "balls_terrain": {"sphere_world": 2}, "nut_bolt": {},
-    "franka_nut_bolt": {"fk": 2}, "soft_body": {"fk": 3, "xpbd": 3}, "ant": {"fk": 2},
-    "franka_reach": {"fk": 2}, "render": {}, "ant_camera": {}, "gym_balls": {"sphere_world": 2},
-    "gym_franka_osc": {"fk": 2}, "gym_interop": {}, "sharded_franka": {"fk": 2},
-    "sharded_balls": {"sphere_world": 2},
+    "balls": {"sphere_world": 2, "chol": 1}, "franka": {"fk": 2, "chol": 4},
+    "franka_cube": {"fk": 2, "chol": 10}, "attractor": {"fk": 2, "chol": 6},
+    "uav_car": {"chol": 1}, "box": {"chol": 4}, "mixed": {"sphere_world": 4, "chol": 4},
+    "pile": {"chol": 4}, "balls_terrain": {"sphere_world": 2, "chol": 2},
+    "nut_bolt": {"chol": 4}, "franka_nut_bolt": {"fk": 2, "chol": 9},
+    "soft_body": {"fk": 3, "xpbd": 3, "chol": 6}, "ant": {"fk": 2, "chol": 4},
+    "franka_reach": {"fk": 2, "chol": 2}, "render": {}, "ant_camera": {},
+    "gym_balls": {"sphere_world": 2, "chol": 1}, "gym_franka_osc": {"fk": 2, "chol": 2},
+    "gym_interop": {"chol": 4}, "sharded_franka": {"fk": 2, "chol": 4},
+    "sharded_balls": {"sphere_world": 2, "chol": 1},
 }
 # the kernel against its plain version on one substep (tests/test_torch_soft_kernel.py's
 # KERNEL_TOL: positions, and velocities as metres a substep, of the largest position)
@@ -430,10 +441,10 @@ def fk_kernel_phase(kernels) -> dict:
     nbytes = 4 * (sum(a.numel() for a in args) + sum(o.numel() for o in got)
                   + topo.fk_ints.numel() + topo.fk_floats.numel())
     bound_ms = nbytes / PEAK_BYTES * 1e3
-    # a graph of FK_GRAPH_CALLS calls: one replay a call would time the
+    # a graph of GRAPH_CALLS calls: one replay a call would time the
     # host's replay, longer than this kernel
-    kernel_ms = graph_ms(lambda: [tk.fk(topo, *args) for _ in range(FK_GRAPH_CALLS)],
-                         reps=20) / FK_GRAPH_CALLS
+    kernel_ms = graph_ms(lambda: [tk.fk(topo, *args) for _ in range(GRAPH_CALLS)],
+                         reps=20) / GRAPH_CALLS
     plain_ms = graph_ms(lambda: tk._fk_torch(topo, *args), reps=20)
     log(f"fk {FRANKA_ENVS} envs x {topo.num_links} links: kernel {kernel_ms:.5f} ms/call, plain "
         f"{plain_ms:.5f} ms/call (device, CUDA-graph replay), bound {bound_ms:.6f} ms ({nbytes} "
@@ -441,6 +452,85 @@ def fk_kernel_phase(kernels) -> dict:
     return {"name": "fk", "route": "cuda", "source": "test_isaacgym_tpu_torch/csrc/fk.cu",
             "replaces": None, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+# the chol kernel's shapes on the main paths (tests/test_torch_chol_kernel.py's
+# first cases): case -> (A's batch shape, n, B's shape or None for spd_inv;
+# "T" marks a B made transposed, as control's J^T is)
+CHOL_CASES = {
+    "track phase A": ((FRANKA_ENVS, 1), 9, (FRANKA_ENVS, 1, 9)),  # physics/dynamics.py
+    "control mass matrix": ((FRANKA_ENVS,), 7, ("T", FRANKA_ENVS, 6, 7)),  # envs/franka.py
+    "control eef": ((FRANKA_ENVS,), 6, (FRANKA_ENVS, 6)),  # envs/franka.py
+    "balls phase B": ((1, 1080), 3, (1, 1080, 3)),  # physics/step.py
+    "soft rail": ((SOFT_ENVS, 1), 1, (SOFT_ENVS, 1, 1)),  # phase A, one dof
+    "soft inverse": ((SOFT_ENVS, 1), 1, None),  # phase C's spd_inv
+}
+
+
+def chol_kernel_phase(kernels) -> dict:
+    """csrc/chol.cu against its plain version _spd_solve at each of
+    CHOL_CASES' shapes: bit for bit, one launch a call, two launches bitwise
+    equal. At track's phase-A shape, its device time by CUDA-graph replay
+    beside its byte bound, the plain version's and the library's
+    (torch.linalg.solve_ex, which computes the same solve by LU). Returns its
+    entry of the {"kernels": ...} line."""
+    from portbench.harness.roofline import PEAK_BYTES
+    from test_isaacgym_tpu_torch.utils import linalg
+
+    t = time.perf_counter()
+    path = kernels.build("chol")
+    log(f"build: chol {time.perf_counter() - t:.2f} s -> {os.path.basename(path)}")
+    for line in kernels.build_logs.get("chol", "").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log("  ptxas:", line.strip())
+    rng = np.random.RandomState(0)
+    f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=DEV)  # noqa: E731
+    for case, (lead, n, bshape) in CHOL_CASES.items():
+        r = rng.normal(size=lead + (n, n))
+        A = f32(r @ r.swapaxes(-1, -2) + n * np.eye(n))
+        if bshape is None:
+            b = None
+            solve = lambda: linalg.spd_inv(A)  # noqa: E731
+            eye = torch.zeros_like(A) + torch.eye(n, device=DEV)
+            want = linalg._spd_solve(A, eye)
+        else:
+            b = (f32(rng.normal(size=bshape[1:])).transpose(-1, -2) if bshape[0] == "T"
+                 else f32(rng.normal(size=bshape)))
+            solve = lambda: linalg.spd_solve(A, b)  # noqa: E731
+            want = linalg._spd_solve(A, b)
+        kernels.launches.clear()
+        got = solve()
+        if dict(kernels.launches) != {"chol": 1}:
+            raise RuntimeError(f"{case}: one chol call made these launches: {dict(kernels.launches)}")
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        log(f"chol kernel vs plain, {case}, A {tuple(A.shape)}, "
+            f"{'inverse' if b is None else f'B {tuple(b.shape)}'}: {differ} of {want.numel()} "
+            f"entries differ")
+        if differ:
+            raise RuntimeError(f"{case}: the chol kernel is not bit for bit the plain version")
+        if not torch.equal(got, solve()):
+            raise RuntimeError(f"{case}: two chol launches on the same inputs differ")
+        if case == "track phase A":
+            timed = A, b, got
+    A, b, got = timed
+    # A and b read once, x written once
+    nbytes = 4 * (A.numel() + b.numel() + got.numel())
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    kernel_ms = graph_ms(lambda: [linalg.spd_solve(A, b) for _ in range(GRAPH_CALLS)],
+                         reps=20) / GRAPH_CALLS
+    plain_ms = graph_ms(lambda: linalg._spd_solve(A, b), reps=20)
+    # solve_ex without its error check: the checked torch.linalg.solve syncs
+    library = lambda: torch.linalg.solve_ex(A, b[..., None], check_errors=False)[0]  # noqa: E731
+    err, _ = max_rel_err([got], [library()[..., 0]])
+    library_ms = graph_ms(library, reps=20)
+    log(f"chol {FRANKA_ENVS} x (9 x 9) against a vector: kernel {kernel_ms:.5f} ms/call, plain "
+        f"{plain_ms:.5f} ms/call, torch.linalg.solve_ex {library_ms:.5f} ms/call (device, "
+        f"CUDA-graph replay; max |err| {err:.3e} from the kernel), bound {bound_ms:.6f} ms "
+        f"({nbytes} bytes)")
+    return {"name": "chol", "route": "cuda", "source": "test_isaacgym_tpu_torch/csrc/chol.cu",
+            "replaces": None, "max_abs_err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
 
 
 def franka_phase(kernels) -> None:
@@ -2045,6 +2135,7 @@ def main() -> int:
     # ---- 2. the fk kernel at the Franka path's shape, then the flagship
     # Franka OSC path, with its own counts ----
     fk_entry = phase_timed(fk_kernel_phase, _kernels)
+    chol_entry = phase_timed(chol_kernel_phase, _kernels)
     phase_timed(franka_phase, _kernels)
 
     # ---- 3. the franka_cube pick path (the contact table), with its own counts ----
@@ -2110,7 +2201,7 @@ def main() -> int:
         log(f"kernel launches of {what}: {launches}")
     log(json.dumps({"kernels": [
         dict(entry, launches=sum(n.get(entry["name"], 0) for n in PATH_LAUNCHES.values()))
-        for entry in (sw_entry, fk_entry, xpbd_entry)]}))
+        for entry in (sw_entry, fk_entry, chol_entry, xpbd_entry)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

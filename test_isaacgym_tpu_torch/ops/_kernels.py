@@ -39,9 +39,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# flags of one kernel beside NVCC_FLAGS: xpbd.cu follows the plain version's
-# arithmetic operation by operation, so no multiply and add may be fused
-KERNEL_FLAGS = {"xpbd": ("-fmad=false",)}
+# flags of one kernel beside NVCC_FLAGS: xpbd.cu and chol.cu follow their plain
+# versions' arithmetic operation by operation, so no multiply and add may be fused
+KERNEL_FLAGS = {"xpbd": ("-fmad=false",), "chol": ("-fmad=false",)}
 
 launches: collections.Counter = collections.Counter()
 build_logs: dict = {}  # kernel name -> nvcc/ptxas report of its last build

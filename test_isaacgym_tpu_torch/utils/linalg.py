@@ -1,16 +1,23 @@
 """Small batched SPD linear algebra.
 
-Port of test_isaacgym_tpu/utils/linalg.py: the same unrolled batched
-Cholesky, entry by entry, so the port rounds as the JAX package does. Every
-system in the simulator is SPD (mass matrices, world-frame rotational
-inertias, operational-space inertias), and the systems are tiny (3x3..9x9)
-at a large batch, where one elementwise op per matrix entry beats a batched
-library factorisation.
+Port of test_isaacgym_tpu/utils/linalg.py. Every system in the simulator is
+SPD (mass matrices, world-frame rotational inertias, operational-space
+inertias), and the systems are tiny (1x1..14x14) at a large batch. On the
+card a system of n <= _UNROLL_MAX goes to csrc/chol.cu, one launch a call;
+on the CPU to `_spd_solve`, its plain version: the JAX package's unrolled
+Cholesky, one batched op a matrix entry and a term, in the same order. The
+kernel does the same arithmetic in that order (no fused multiply-add), so
+either route rounds as the JAX package does. Larger systems go to
+torch.linalg.solve.
 """
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 
+from ..ops import _kernels
 from .trace import span
 
 _UNROLL_MAX = 24
@@ -42,14 +49,19 @@ def _chol_unrolled(A):
 def spd_solve(A, B):
     """Solve A X = B for SPD A, batched over arbitrary leading axes.
 
-    A: (..., n, n); B: (..., n) or (..., n, k). Unrolled Cholesky for
-    n <= _UNROLL_MAX, else torch.linalg.solve.
+    A: (..., n, n); B: (..., n) or (..., n, k). For n <= _UNROLL_MAX CUDA
+    tensors launch csrc/chol.cu and CPU tensors take the plain version; else
+    torch.linalg.solve.
     """
     with span("chol"):
-        return _spd_solve(A, B)
+        if A.device.type == "cpu" or A.shape[-1] > _UNROLL_MAX:
+            return _spd_solve(A, B)
+        return _chol_cuda(A, B)
 
 
 def _spd_solve(A, B):
+    """`spd_solve`'s plain version: the unrolled Cholesky solve of batched
+    PyTorch ops, or torch.linalg.solve for n > _UNROLL_MAX."""
     n = A.shape[-1]
     vec = B.dim() == A.dim() - 1
     if n > _UNROLL_MAX:
@@ -77,13 +89,52 @@ def _spd_solve(A, B):
 
 
 def spd_inv(A):
-    """Batched SPD inverse via the unrolled Cholesky solve against identity."""
+    """Batched SPD inverse: the solve against the identity, which the kernel
+    forms itself."""
     with span("chol"):
         n = A.shape[-1]
+        if A.device.type != "cpu" and n <= _UNROLL_MAX:
+            return _chol_cuda(A, None)
         eye = torch.zeros_like(A) + torch.eye(n, dtype=A.dtype, device=A.device)
-        if n > _UNROLL_MAX:
-            return torch.linalg.solve(A, eye)
         return _spd_solve(A, eye)
+
+
+# ---------------------------------------------------------------------------
+# the hand-written kernel's wrapper (csrc/chol.cu)
+# ---------------------------------------------------------------------------
+_P = ctypes.c_void_p
+_ARGTYPES = (
+    [_P, _P, _P]  # A B X
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]  # n k batch
+    + [_P]  # stream
+)
+
+
+def _chol_cuda(A, B):
+    """One launch of csrc/chol.cu on the current stream for float32 CUDA
+    tensors, n <= _UNROLL_MAX; raises on anything else. B None gives A^-1.
+    Leading axes broadcast as in the plain version and are flattened into
+    the kernel's batch."""
+    n = A.shape[-1]
+    lead, out = A.shape[:-2], (n, n)
+    if B is not None:
+        out = (n,) if B.dim() == A.dim() - 1 else (n, B.shape[-1])
+        if B.shape[:-len(out)] != lead:  # its first call imports sympy: seconds
+            lead = torch.broadcast_shapes(lead, B.shape[:-len(out)])
+    dev = A.device
+    specs = [("A", A.expand(lead + (n, n)), lead + (n, n))]
+    if B is not None:
+        specs.append(("B", B.expand(lead + out), lead + out))
+    a, *b = _kernels.inputs("chol", dev, specs)
+    X = torch.empty(lead + out, dtype=torch.float32, device=dev)
+    batch, k = math.prod(lead), out[-1] if len(out) == 2 else 1
+    if batch == 0 or k == 0:  # nothing to solve: nothing to launch
+        return X
+    _kernels.launch(
+        "chol", _kernels.entry("chol", "chol_forward", _ARGTYPES), dev,
+        a.data_ptr(), b[0].data_ptr() if b else None, X.data_ptr(), n, k, batch,
+    )
+    return X
 
 
 # Historical name: every inverse in the simulator is of an SPD operator.

@@ -36,7 +36,8 @@ Spans, nested as the calls are:
   crba                     physics/dynamics.py crba: the mass matrix
   rnea                     physics/dynamics.py rnea_bias: the bias force
   chol                     utils/linalg.py spd_solve and spd_inv: the
-                           unrolled Cholesky solves
+                           launch of csrc/chol.cu on the card, the
+                           unrolled Cholesky solves on the CPU
   control.osc              envs/franka.py FrankaOscEnv._control: the OSC law
     control.osc.jacobian   its hand Jacobian
     control.osc.mass_matrix  its runtime mass matrix

@@ -10,6 +10,8 @@ commit); PHASE names a phase of ROOT's chip_smoke.py:
                    version, its graph-replay time and bound
     balls          balls_phase: the 1080 balls and the 120-ball drop golden
     fk             fk_kernel_phase: the fk kernel at the Franka path's shape
+    chol           chol_kernel_phase: the chol kernel at the main paths'
+                   shapes, timed at the Franka path's phase-A shape
     franka         franka_phase: the Franka OSC flagship, 4096 envs
     franka_cube    cube_phase: the franka_cube pick path, 4096 envs
     attractor      attractor_phase: examples/franka_attractor.py, 4096 envs
@@ -108,6 +110,7 @@ def main(root, phases):
         "sphere_world": lambda: cs.sphere_world_kernel_phase(k),
         "balls": lambda: cs.balls_phase(k),
         "fk": lambda: cs.fk_kernel_phase(k),
+        "chol": lambda: cs.chol_kernel_phase(k),
         "franka": lambda: cs.franka_phase(k),
         "franka_cube": lambda: cs.cube_phase(k),
         "attractor": lambda: cs.attractor_phase(k),
