@@ -106,7 +106,7 @@ class _VecEnvBase:
         from ..render.raster import render_camera_batch, shape_world_poses, tables_from_scene
 
         if self._rtables is None:
-            self._rtables = tables_from_scene(self.sim.scene)
+            self._rtables = tables_from_scene(self.sim.scene, self.device)
         p, tb = self.sim.params, self._rtables
         sp, sq = shape_world_poses(self.state, p, tb, self.sim.scene)
         eye, target = self._camera()

@@ -1723,8 +1723,9 @@ class Gym:
         """The render's scene-wide inputs as tensors on the sim's device,
         built after a call that changed them and reused by every frame until
         the next: ground, light, sky, texture atlas and ids, colours,
-        segmentation ids, the static mesh tables, each sensor's fov, and the
-        viewer's debug lines padded per env."""
+        segmentation ids, the shape tables (`RenderTables.to`), the static
+        mesh tables, each sensor's fov, and the viewer's debug lines padded
+        per env."""
         if sim._render_inputs is not None:
             return sim._render_inputs
         from ..render.raster import TEX_RES, resample_texture
@@ -1755,6 +1756,7 @@ class Gym:
             tex=None,
             tex_id=None,
             body=t(tbl.body, torch.long),
+            tables=tbl.to(dev),  # shape_world_poses' tables, read each frame
             mesh_rows=tuple(int(r) for r in tbl.mesh_rows),
             mesh_planes=t(tbl.mesh_planes),
             mesh_base=t(tbl.mesh_base),
@@ -1817,7 +1819,7 @@ class Gym:
 
         s = sim.sim
         r = self._render_scene_inputs(sim)
-        sp, sq = shape_world_poses(s.state, s.params, sim._render_tables, s.scene)
+        sp, sq = shape_world_poses(s.state, s.params, r["tables"], s.scene)
         tri_kw = dict(r["tri_kw"])
         # soft surface triangles render as a world-frame soup
         if s.scene.soft is not None and s.state.soft_pos is not None:

@@ -8,6 +8,8 @@ controller).
 
 Shapes: every function accepts `(..., 4)` quats / `(..., 3)` vectors and
 broadcasts over leading axes — the env/actor batch dims of the simulator.
+`const_rows`, the port's own, makes rows of constant vectors on a device
+without a host copy (a host sync on the card).
 """
 from __future__ import annotations
 
@@ -24,6 +26,16 @@ def cross(a, b):
 
 def _norm(x, keepdim=False):
     return torch.linalg.vector_norm(x, dim=-1, keepdim=keepdim)
+
+
+def const_rows(values, like):
+    """Rows (..., len(values)) of the constants `values` beside `like` (...,
+    k), of its dtype and on its device, made by fills: no host copy, so no
+    host sync."""
+    out = like.new_empty(like.shape[:-1] + (len(values),))
+    for i, v in enumerate(values):
+        out[..., i] = v
+    return out
 
 
 def quat_identity(shape=(), dtype=torch.float32, device="cuda"):

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from .core.state import PhysParams
+from .math.quat import const_rows
 
 
 def _u(gen, shape, lo, hi, device):
@@ -91,11 +92,15 @@ def randomize_light(gen, device="cuda") -> Tuple[torch.Tensor, torch.Tensor, tor
 def randomize_camera_pose(gen, num_envs: int, center, radius=(2.0, 4.0), height=(0.5, 2.5),
                           device="cuda"):
     """(pos (N,3), look_target (N,3)) random orbit poses around `center`
-    (domain_randomization.py:169-172)."""
+    (domain_randomization.py:169-172); a `center` of numbers is made on the
+    device by fills, with no host sync."""
     theta = _u(gen, (num_envs,), 0.0, 2 * math.pi, device)
     r = _u(gen, (num_envs,), *radius, device)
     h = _u(gen, (num_envs,), *height, device)
-    center = torch.as_tensor(center, dtype=torch.float32, device=device).expand(num_envs, 3)
+    if torch.is_tensor(center):
+        center = center.to(device=device, dtype=torch.float32).expand(num_envs, 3)
+    else:
+        center = const_rows(center, h[:, None])
     pos = center + torch.stack([r * torch.cos(theta), r * torch.sin(theta), h], -1)
     return pos, center
 

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..core.config import CameraProperties
-from ..math.quat import cross, quat_mul, quat_rotate
+from ..math.quat import const_rows, cross, quat_mul, quat_rotate
 
 FOLLOW_POSITION = 0
 FOLLOW_TRANSFORM = 1
@@ -183,15 +183,15 @@ def look_at_quat(eye, target, up=(0.0, 0.0, 1.0)) -> np.ndarray:
 
 def look_at_quat_t(eye, target, up=(0.0, 0.0, 1.0)):
     """`look_at_quat` of each row of eye, target (N, 3) tensors, on their
-    device: the same branches (a view along `up` takes the other up axis;
-    the matrix-to-quaternion branch on w), f32."""
-    up_t = torch.tensor(up, dtype=eye.dtype, device=eye.device).expand_as(eye)
+    device and with no host sync: the same branches (a view along `up`
+    takes the other up axis; the matrix-to-quaternion branch on w), f32."""
+    up_t = const_rows(up, eye)
     f = target - eye
     n = torch.linalg.vector_norm(f, dim=-1, keepdim=True)
-    f = torch.where(n > 1e-9, f / n, torch.tensor([1.0, 0.0, 0.0], device=eye.device))
-    alt = [0.0, 1.0, 0.0] if abs(up[2]) > 0.5 else [0.0, 0.0, 1.0]
+    f = torch.where(n > 1e-9, f / n, const_rows((1.0, 0.0, 0.0), eye))
+    alt = (0.0, 1.0, 0.0) if abs(up[2]) > 0.5 else (0.0, 0.0, 1.0)
     along = (f * up_t).sum(-1, keepdim=True).abs() > 0.999
-    up_t = torch.where(along, torch.tensor(alt, device=eye.device), up_t)
+    up_t = torch.where(along, const_rows(alt, eye), up_t)
     left = cross(up_t, f)
     left = left / torch.linalg.vector_norm(left, dim=-1, keepdim=True)
     z = cross(f, left)

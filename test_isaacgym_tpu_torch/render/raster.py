@@ -41,7 +41,8 @@ import torch
 
 from ..assets.types import GEOM_MESH as GEOM_MESH_KIND
 from ..core.scene import SHAPE_BOX, SHAPE_CAPSULE, SHAPE_MESH, SHAPE_SPHERE, Scene
-from ..math.quat import cross, quat_mul, quat_rotate, quat_rotate_inverse
+from ..math.quat import const_rows, cross, quat_mul, quat_rotate, quat_rotate_inverse
+from ..utils.trace import span, stage
 
 BIG = 1e30
 TEX_RES = 128  # atlas resolution textures are resampled to
@@ -64,7 +65,8 @@ def _np_qrot_inv(q, v):
 
 
 class RenderTables(NamedTuple):
-    """Static per-env-template shape tables (host numpy)."""
+    """Static per-env-template shape tables: host numpy, or tensors on a
+    device after `to` (`tables_from_scene(scene, device)`)."""
 
     body: np.ndarray  # (S,) env body index
     kind: np.ndarray  # (S,)
@@ -88,8 +90,21 @@ class RenderTables(NamedTuple):
     tri_v: np.ndarray
     tri_n: np.ndarray
 
+    def to(self, device) -> "RenderTables":
+        """The tables as tensors on `device`, each of its own dtype: copied
+        there once, so that a frame that reads them makes no host copy."""
+        return RenderTables(*(torch.as_tensor(x, device=device) for x in self))
 
-def tables_from_scene(scene: Scene) -> RenderTables:
+
+def tables_from_scene(scene: Scene, device=None) -> RenderTables:
+    """The scene's render tables, numpy; with `device`, copied there once
+    (`RenderTables.to`)."""
+    with stage("setup.render"):
+        tables = _tables_from_scene(scene)
+        return tables if device is None else tables.to(device)
+
+
+def _tables_from_scene(scene: Scene) -> RenderTables:
     sh = scene.shapes
     colors = np.full((sh.count, 3), 0.7, np.float32)
     seg = np.zeros(sh.count, np.int32)
@@ -628,20 +643,21 @@ def render_rays(
     hit_shape = torch.empty((N, P), dtype=torch.bool, device=dev)
     rays = max(1, min(P, BLOCK_ELEMS // cols))
     envs = max(1, BLOCK_ELEMS // (rays * cols))
-    for e0 in range(0, N, envs):
-        es = slice(e0, min(N, e0 + envs))
-        h = None if hull is None else hull[:3] + (hull[3][es],)
-        for r0 in range(0, P, rays):
-            rs = slice(r0, min(P, r0 + rays))
-            tri = None if tri_out is None else [x[es, rs] for x in tri_out]
-            line = None if line_out is None else [x[es, rs] for x in line_out]
-            out = _primitive_block(
-                origin[es], dirs[es, rs], shape_pos[es], shape_quat[es], shape_size[es],
-                kind[es], color[es], seg[es], ground, light_dir, light_color, ambient, bg,
-                tex if textured else None, tex_id[es] if textured else None, h, excl,
-                tri, line)
-            for dst, src in zip((rgba, t_out, hit, seg_img, best, hit_shape), out):
-                dst[es, rs] = src
+    with span("render.primitives"):
+        for e0 in range(0, N, envs):
+            es = slice(e0, min(N, e0 + envs))
+            h = None if hull is None else hull[:3] + (hull[3][es],)
+            for r0 in range(0, P, rays):
+                rs = slice(r0, min(P, r0 + rays))
+                tri = None if tri_out is None else [x[es, rs] for x in tri_out]
+                line = None if line_out is None else [x[es, rs] for x in line_out]
+                out = _primitive_block(
+                    origin[es], dirs[es, rs], shape_pos[es], shape_quat[es], shape_size[es],
+                    kind[es], color[es], seg[es], ground, light_dir, light_color, ambient, bg,
+                    tex if textured else None, tex_id[es] if textured else None, h, excl,
+                    tri, line)
+                for dst, src in zip((rgba, t_out, hit, seg_img, best, hit_shape), out):
+                    dst[es, rs] = src
     return rgba, t_out, hit, seg_img, best, hit_shape
 
 
@@ -649,22 +665,26 @@ def camera_rays(props_w, props_h, hfov_deg, quat):
     """Pixel ray directions in WORLD frame. quat (N, 4) camera orientations;
     hfov_deg (N,) per-env horizontal fov. Returns (N, H*W, 3) and the
     forward axes (N, 3)."""
-    t = torch.tan(hfov_deg * (math.pi / 180) / 2)
-    fx = props_w / 2 / t  # (N,)
-    dev = quat.device
-    u = torch.arange(props_w, dtype=torch.float32, device=dev) + 0.5 - props_w / 2
-    v = torch.arange(props_h, dtype=torch.float32, device=dev) + 0.5 - props_h / 2
-    vv, uu = torch.meshgrid(v, u, indexing="ij")  # (H, W)
-    f = fx[:, None, None]
-    d_cam = torch.stack([torch.ones_like(uu).expand(f.shape[0], -1, -1), -uu / f, -vv / f],
-                        -1).reshape(f.shape[0], -1, 3)
-    d_cam = d_cam / _norm(d_cam, keepdim=True)
-    d_w = quat_rotate(quat[:, None, :], d_cam)
-    fwd = quat_rotate(quat, torch.tensor([1.0, 0, 0], device=dev).expand(quat.shape[0], 3))
-    return d_w, fwd
+    with span("render.rays"):
+        t = torch.tan(hfov_deg * (math.pi / 180) / 2)
+        fx = props_w / 2 / t  # (N,)
+        dev = quat.device
+        u = torch.arange(props_w, dtype=torch.float32, device=dev) + 0.5 - props_w / 2
+        v = torch.arange(props_h, dtype=torch.float32, device=dev) + 0.5 - props_h / 2
+        vv, uu = torch.meshgrid(v, u, indexing="ij")  # (H, W)
+        f = fx[:, None, None]
+        d_cam = torch.stack([torch.ones_like(uu).expand(f.shape[0], -1, -1), -uu / f, -vv / f],
+                            -1).reshape(f.shape[0], -1, 3)
+        d_cam = d_cam / _norm(d_cam, keepdim=True)
+        d_w = quat_rotate(quat[:, None, :], d_cam)
+        return d_w, quat_rotate(quat, const_rows((1.0, 0.0, 0.0), quat))
 
 
 def _t(x, dev, dtype=torch.float32):
+    """x as a tensor of `dtype` on dev: a tensor there already or a Python
+    number costs no host copy."""
+    if isinstance(x, (int, float)):
+        return torch.full((), x, dtype=dtype, device=dev)
     return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, device=dev).to(dtype)
 
 
@@ -721,131 +741,137 @@ def render_camera_batch(
     flow_dt > 0 with body_lin/ang/ctr given produces IMAGE_OPTICAL_FLOW:
     per-pixel (du, dv) in PIXELS between the previous frame (hit points
     reprojected back by their body velocity x dt) and this one."""
-    dev = cam_pos.device
-    N, S = shape_pos_w.shape[:2]
-    color = _t(color, dev)
-    color = color.expand(N, S, 3) if color.dim() == 2 else color
-    kind = _t(kind, dev, torch.int32).expand(N, S)
-    seg = _t(seg, dev, torch.int32).expand(N, S)
-    hfov = _t(hfov, dev).expand(N)
-    ground, light_dir, light_color, ambient, bg = (
-        _t(x, dev) for x in (ground, light_dir, light_color, ambient, bg))
-    do_cull = S > cull_max
-    if tex is not None:
-        tex = _t(tex, dev)
-    if tex_id is not None:
-        tex_id = _t(tex_id, dev, torch.int32).expand(N, S)
-    rw, rh = width * ss, height * ss
+    with span("render"):
+        dev = cam_pos.device
+        N, S = shape_pos_w.shape[:2]
+        color = _t(color, dev)
+        color = color.expand(N, S, 3) if color.dim() == 2 else color
+        kind = _t(kind, dev, torch.int32).expand(N, S)
+        seg = _t(seg, dev, torch.int32).expand(N, S)
+        hfov = _t(hfov, dev).expand(N)
+        ground, light_dir, light_color, ambient, bg = (
+            _t(x, dev) for x in (ground, light_dir, light_color, ambient, bg))
+        do_cull = S > cull_max
+        if tex is not None:
+            tex = _t(tex, dev)
+        if tex_id is not None:
+            tex_id = _t(tex_id, dev, torch.int32).expand(N, S)
+        rw, rh = width * ss, height * ss
 
-    want_flow = flow_dt > 0 and body_lin is not None
-    use_mesh = mesh_rows is not None and len(mesh_rows) > 0 and not do_cull
-    use_tris = tri_shape is not None and len(tri_shape) > 0 and not do_cull
-    use_soft = soft_tris is not None and soft_tris.shape[1] > 0 and not do_cull
-    use_lines = lines is not None and lines.shape[1] > 0 and not do_cull
+        want_flow = flow_dt > 0 and body_lin is not None
+        use_mesh = mesh_rows is not None and len(mesh_rows) > 0 and not do_cull
+        use_tris = tri_shape is not None and len(tri_shape) > 0 and not do_cull
+        use_soft = soft_tris is not None and soft_tris.shape[1] > 0 and not do_cull
+        use_lines = lines is not None and lines.shape[1] > 0 and not do_cull
 
-    sp, sq, ssize = shape_pos_w, shape_quat_w, shape_size
-    col_k, kind_k, seg_k, tid_k = color, kind, seg, tex_id
-    if do_cull:
-        # bounding sphere vs view cone (conservative): keep the cull_max
-        # nearest shapes that can intersect the frustum, in a stable order
-        fwd0 = quat_rotate(cam_quat, torch.tensor([1.0, 0, 0], device=dev).expand(N, 3))
-        rel = sp - cam_pos[:, None, :]
-        dist = _norm(rel)
-        rad = _norm(ssize)
-        along = _dot(rel, fwd0[:, None, :])
-        perp = torch.sqrt((dist ** 2 - along ** 2).clamp_min(0.0))
-        # half-diagonal of the image plane at unit distance
-        t_half = torch.tan(hfov * (math.pi / 180) / 2)
-        diag = t_half * torch.sqrt(torch.tensor(1.0 + (height / width) ** 2, device=dev)) + 1e-3
-        visible = (along + rad > 0) & (perp - rad <= along.clamp_min(0.0) * diag[:, None] + rad)
-        score = torch.where(visible, dist - rad, BIG)
-        keep = torch.sort(score, dim=-1, stable=True).indices[:, :cull_max]
-        sp, sq, ssize = _take(sp, keep), _take(sq, keep), _take(ssize, keep)
-        col_k, kind_k, seg_k = _take(color, keep), _take(kind, keep), _take(seg, keep)
-        tid_k = _take(tex_id, keep) if tex_id is not None else None
-    dirs, fwd = camera_rays(rw, rh, hfov, cam_quat)
+        sp, sq, ssize = shape_pos_w, shape_quat_w, shape_size
+        col_k, kind_k, seg_k, tid_k = color, kind, seg, tex_id
+        if do_cull:
+            # bounding sphere vs view cone (conservative): keep the cull_max
+            # nearest shapes that can intersect the frustum, in a stable order
+            fwd0 = quat_rotate(cam_quat, const_rows((1.0, 0.0, 0.0), cam_quat))
+            rel = sp - cam_pos[:, None, :]
+            dist = _norm(rel)
+            rad = _norm(ssize)
+            along = _dot(rel, fwd0[:, None, :])
+            perp = torch.sqrt((dist ** 2 - along ** 2).clamp_min(0.0))
+            # half-diagonal of the image plane at unit distance
+            t_half = torch.tan(hfov * (math.pi / 180) / 2)
+            diag = t_half * torch.sqrt(_t(1.0 + (height / width) ** 2, dev)) + 1e-3
+            visible = (along + rad > 0) & (perp - rad <= along.clamp_min(0.0) * diag[:, None] + rad)
+            score = torch.where(visible, dist - rad, BIG)
+            keep = torch.sort(score, dim=-1, stable=True).indices[:, :cull_max]
+            sp, sq, ssize = _take(sp, keep), _take(sq, keep), _take(ssize, keep)
+            col_k, kind_k, seg_k = _take(color, keep), _take(kind, keep), _take(seg, keep)
+            tid_k = _take(tex_id, keep) if tex_id is not None else None
+        dirs, fwd = camera_rays(rw, rh, hfov, cam_quat)
 
-    tris = tri_excl = None
-    if use_tris or use_soft:
-        parts_v, parts_n, parts_c, parts_s, parts_i = [], [], [], [], []
-        if use_tris:
-            ts_np = np.asarray(tri_shape)
-            tri_excl = np.zeros(S, bool)
-            tri_excl[ts_np] = True
-            ts = torch.as_tensor(ts_np, dtype=torch.long, device=dev)
-            base = _t(np.maximum(np.asarray(tri_base, np.float32)[ts_np], 1e-6), dev)
-            # world transform of the local tri table; nonuniform runtime
-            # scale sig maps normals through 1/sig
-            sig = ssize[:, ts] / base  # (N, T, 3)
-            qts = sq[:, ts][:, :, None, :]
-            parts_v.append(sp[:, ts][:, :, None, :] + quat_rotate(qts, sig[:, :, None, :] * _t(tri_v, dev)))
-            parts_n.append(quat_rotate(qts, _t(tri_n, dev) / sig[:, :, None, :]))
-            parts_c.append(col_k[:, ts])
-            parts_s.append(seg_k[0, ts])
-            parts_i.append(ts.to(torch.int32))
-        if use_soft:
-            stris = _t(soft_tris, dev)
-            Te = stris.shape[1]
-            parts_v.append(stris)
-            fn = cross(stris[:, :, 1] - stris[:, :, 0], stris[:, :, 2] - stris[:, :, 0])
-            parts_n.append(fn[:, :, None, :].expand(N, Te, 3, 3))
-            parts_c.append(_t(soft_colors, dev).expand(N, Te, 3))
-            parts_s.append(torch.zeros(Te, dtype=torch.int32, device=dev))
-            parts_i.append(torch.full((Te,), -1, dtype=torch.int32, device=dev))
-        tris = tuple(torch.cat(x, 1 if k < 3 else 0)
-                     for k, x in enumerate((parts_v, parts_n, parts_c, parts_s, parts_i)))
-    lns = None
-    if use_lines:
-        lt = _t(lines, dev)
-        lns = (lt[:, :, 0], lt[:, :, 1], _t(line_colors, dev))
-    rgba, t, hit, seg_img, best, hit_shape = render_rays(
-        cam_pos, dirs, sp, sq, ssize, kind_k, col_k, seg_k,
-        ground, light_dir, light_color, ambient, bg,
-        tex=tex, tex_id=tid_k,
-        mesh_rows=mesh_rows if use_mesh else None,
-        mesh_planes=mesh_planes if use_mesh else None,
-        mesh_base=mesh_base if use_mesh else None,
-        tris=tris, tri_excl=tri_excl, lines=lns,
-        px_ang=2.0 * torch.tan(hfov * (math.pi / 180) / 2) / rw,
-    )
-    zdepth = t * _dot(dirs, fwd[:, None, :])
-    depth = torch.where(hit & (t < far), -zdepth, -math.inf)
-    flow = None
-    if want_flow:
-        bl, ba, bc = (_t(x, dev) for x in (body_lin, body_ang, body_ctr))
-        p_hit = cam_pos[:, None, :] + t[..., None] * dirs
-        v_hit = _take(bl, best) + cross(_take(ba, best), p_hit - _take(bc, best))
-        v_hit = torch.where(hit_shape[..., None], v_hit, 0.0)
-        p_prev = p_hit - flow_dt * v_hit
-        dc = quat_rotate_inverse(cam_quat[:, None, :], p_prev - cam_pos[:, None, :])
-        fx = (rw / 2 / torch.tan(hfov * (math.pi / 180) / 2))[:, None]
-        x = dc[..., 0].clamp_min(1e-6)
-        u_prev = -dc[..., 1] / x * fx + rw / 2 - 0.5
-        v_prev = -dc[..., 2] / x * fx + rh / 2 - 0.5
-        vv, uu = torch.meshgrid(torch.arange(rh, dtype=torch.float32, device=dev),
-                                torch.arange(rw, dtype=torch.float32, device=dev), indexing="ij")
-        du = uu.reshape(-1) - u_prev
-        dv = vv.reshape(-1) - v_prev
-        flow = torch.where(hit_shape[..., None], torch.stack([du, dv], -1), 0.0)
-        flow = flow.reshape(N, rh, rw, 2)
-    rgba = rgba.reshape(N, rh, rw, 4)
-    depth = depth.reshape(N, rh, rw)
-    seg_img = seg_img.reshape(N, rh, rw)
-    if ss > 1:  # box filter downsample
-        rgba = rgba.reshape(N, height, ss, width, ss, 4).mean((2, 4))
-        depth = depth.reshape(N, height, ss, width, ss).amax((2, 4))
-        seg_img = seg_img.reshape(N, height, ss, width, ss)[:, :, 0, :, 0]
-        if flow is not None:
-            flow = flow.reshape(N, height, ss, width, ss, 2).mean((2, 4)) / ss
-    return (rgba * 255).to(torch.uint8), depth, seg_img.to(torch.int32), flow
+        tris = tri_excl = None
+        if use_tris or use_soft:
+            parts_v, parts_n, parts_c, parts_s, parts_i = [], [], [], [], []
+            if use_tris:
+                ts_np = np.asarray(tri_shape)
+                tri_excl = np.zeros(S, bool)
+                tri_excl[ts_np] = True
+                ts = torch.as_tensor(ts_np, dtype=torch.long, device=dev)
+                base = _t(np.maximum(np.asarray(tri_base, np.float32)[ts_np], 1e-6), dev)
+                # world transform of the local tri table; nonuniform runtime
+                # scale sig maps normals through 1/sig
+                sig = ssize[:, ts] / base  # (N, T, 3)
+                qts = sq[:, ts][:, :, None, :]
+                parts_v.append(sp[:, ts][:, :, None, :]
+                               + quat_rotate(qts, sig[:, :, None, :] * _t(tri_v, dev)))
+                parts_n.append(quat_rotate(qts, _t(tri_n, dev) / sig[:, :, None, :]))
+                parts_c.append(col_k[:, ts])
+                parts_s.append(seg_k[0, ts])
+                parts_i.append(ts.to(torch.int32))
+            if use_soft:
+                stris = _t(soft_tris, dev)
+                Te = stris.shape[1]
+                parts_v.append(stris)
+                fn = cross(stris[:, :, 1] - stris[:, :, 0], stris[:, :, 2] - stris[:, :, 0])
+                parts_n.append(fn[:, :, None, :].expand(N, Te, 3, 3))
+                parts_c.append(_t(soft_colors, dev).expand(N, Te, 3))
+                parts_s.append(torch.zeros(Te, dtype=torch.int32, device=dev))
+                parts_i.append(torch.full((Te,), -1, dtype=torch.int32, device=dev))
+            tris = tuple(torch.cat(x, 1 if k < 3 else 0)
+                         for k, x in enumerate((parts_v, parts_n, parts_c, parts_s, parts_i)))
+        lns = None
+        if use_lines:
+            lt = _t(lines, dev)
+            lns = (lt[:, :, 0], lt[:, :, 1], _t(line_colors, dev))
+        rgba, t, hit, seg_img, best, hit_shape = render_rays(
+            cam_pos, dirs, sp, sq, ssize, kind_k, col_k, seg_k,
+            ground, light_dir, light_color, ambient, bg,
+            tex=tex, tex_id=tid_k,
+            mesh_rows=mesh_rows if use_mesh else None,
+            mesh_planes=mesh_planes if use_mesh else None,
+            mesh_base=mesh_base if use_mesh else None,
+            tris=tris, tri_excl=tri_excl, lines=lns,
+            px_ang=2.0 * torch.tan(hfov * (math.pi / 180) / 2) / rw,
+        )
+        with span("render.pack"):
+            zdepth = t * _dot(dirs, fwd[:, None, :])
+            depth = torch.where(hit & (t < far), -zdepth, -math.inf)
+            flow = None
+            if want_flow:
+                bl, ba, bc = (_t(x, dev) for x in (body_lin, body_ang, body_ctr))
+                p_hit = cam_pos[:, None, :] + t[..., None] * dirs
+                v_hit = _take(bl, best) + cross(_take(ba, best), p_hit - _take(bc, best))
+                v_hit = torch.where(hit_shape[..., None], v_hit, 0.0)
+                p_prev = p_hit - flow_dt * v_hit
+                dc = quat_rotate_inverse(cam_quat[:, None, :], p_prev - cam_pos[:, None, :])
+                fx = (rw / 2 / torch.tan(hfov * (math.pi / 180) / 2))[:, None]
+                x = dc[..., 0].clamp_min(1e-6)
+                u_prev = -dc[..., 1] / x * fx + rw / 2 - 0.5
+                v_prev = -dc[..., 2] / x * fx + rh / 2 - 0.5
+                vv, uu = torch.meshgrid(torch.arange(rh, dtype=torch.float32, device=dev),
+                                        torch.arange(rw, dtype=torch.float32, device=dev),
+                                        indexing="ij")
+                du = uu.reshape(-1) - u_prev
+                dv = vv.reshape(-1) - v_prev
+                flow = torch.where(hit_shape[..., None], torch.stack([du, dv], -1), 0.0)
+                flow = flow.reshape(N, rh, rw, 2)
+            rgba = rgba.reshape(N, rh, rw, 4)
+            depth = depth.reshape(N, rh, rw)
+            seg_img = seg_img.reshape(N, rh, rw)
+            if ss > 1:  # box filter downsample
+                rgba = rgba.reshape(N, height, ss, width, ss, 4).mean((2, 4))
+                depth = depth.reshape(N, height, ss, width, ss).amax((2, 4))
+                seg_img = seg_img.reshape(N, height, ss, width, ss)[:, :, 0, :, 0]
+                if flow is not None:
+                    flow = flow.reshape(N, height, ss, width, ss, 2).mean((2, 4)) / ss
+            return (rgba * 255).to(torch.uint8), depth, seg_img.to(torch.int32), flow
 
 
 def shape_world_poses(state, params, tables: RenderTables, scene: Scene):
-    """World pose of every shape: (N, S, 3), (N, S, 4)."""
-    dev = state.body_pos.device
-    body = torch.as_tensor(tables.body, dtype=torch.long, device=dev)
-    bq = state.body_quat[:, body]
-    bp = state.body_pos[:, body]
-    sp = bp + quat_rotate(bq, params.shape_pos)
-    sq = quat_mul(bq, torch.as_tensor(tables.quat, device=dev))
-    return sp, sq
+    """World pose of every shape: (N, S, 3), (N, S, 4). Tables already on
+    the state's device (`RenderTables.to`) make no host copy."""
+    with span("render.poses"):
+        dev = state.body_pos.device
+        body = torch.as_tensor(tables.body, device=dev).long()
+        bq = state.body_quat[:, body]
+        bp = state.body_pos[:, body]
+        sp = bp + quat_rotate(bq, params.shape_pos)
+        sq = quat_mul(bq, torch.as_tensor(tables.quat, device=dev))
+        return sp, sq

@@ -41,6 +41,15 @@ Spans, nested as the calls are:
   control.osc              envs/franka.py FrankaOscEnv._control: the OSC law
     control.osc.jacobian   its hand Jacobian
     control.osc.mass_matrix  its runtime mass matrix
+  render                   render/raster.py render_camera_batch, whole: a
+                           frame of every env's camera
+    render.rays            camera_rays: the pixels' world ray directions
+    render.primitives      render_rays' block loop of _primitive_block: the
+                           ray-shape tests, the ground, the shading
+    render.pack            depth, optical flow when asked for, the reshapes,
+                           supersampling and the uint8 colour
+  render.poses             render/raster.py shape_world_poses: every shape's
+                           world pose (called before render_camera_batch)
 
 Stages:
   setup.build              core/scene.py SceneBuilder.create_env and
@@ -53,6 +62,8 @@ Stages:
                            microseconds in a scene without `<fem>` links)
                            and SoftStepper.__init__ (from the Stepper's),
                            both host loops over tets
+  setup.render             render/raster.py tables_from_scene: the render
+                           tables, and their copy to the device when asked
 """
 from __future__ import annotations
 
