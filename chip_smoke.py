@@ -10,7 +10,8 @@ sphere-world solve on random worlds, the piled 1080-ball state and a dense
 kinematics (csrc/fk.cu) at the Franka path's shape; the batched SPD solve
 (csrc/chol.cu) at the shapes the Franka, balls and soft_body paths give it,
 bit for bit; one XPBD substep (csrc/xpbd.cu) of the soft_body scene
-mid-impact. Two launches on the same
+mid-impact; a frame of the renderer's primitive pass (csrc/raycast.cu) at
+the Ant camera cell's shape, bit for bit. Two launches on the same
 inputs must give the same bits. Each kernel's device time a call, replayed
 from a CUDA graph, is printed beside its bound and its plain version's time:
 the one measurement here, the source of the kernel table in PERF.md.
@@ -258,8 +259,13 @@ DEV = "cuda"
 # impulse's two, phase B's 3 x 3 solve of the free bodies, phase C's
 # inverses (a group with contact rows, the free bodies of a contact table or
 # a neighbor world) each substep, and the OSC controls' solves each step
-# (franka: 2 substeps + 2 control = 4; balls: 1). A new kernel adds its key
-# to the paths that launch it.
+# (franka: 2 substeps + 2 control = 4; balls: 1). raycast (csrc/raycast.cu,
+# one a render_camera_batch frame that asks for the primitive pass alone):
+# the Ant cameras' frame; interop's one sensor (a ball, the ground, no
+# texture), rendered twice a frame, by render_all_camera_sensors and by
+# start_access_image_tensors; render1600x900's frame has triangles and hull
+# rows and takes the plain ops. A new kernel adds its key to the paths that
+# launch it.
 EXPECTED_LAUNCHES = {
     "balls": {"sphere_world": 2, "chol": 1}, "franka": {"fk": 2, "chol": 4},
     "franka_cube": {"fk": 2, "chol": 10}, "attractor": {"fk": 2, "chol": 6},
@@ -267,9 +273,9 @@ EXPECTED_LAUNCHES = {
     "pile": {"chol": 4}, "balls_terrain": {"sphere_world": 2, "chol": 2},
     "nut_bolt": {"chol": 4}, "franka_nut_bolt": {"fk": 2, "chol": 9},
     "soft_body": {"fk": 3, "xpbd": 3, "chol": 6}, "ant": {"fk": 2, "chol": 4},
-    "franka_reach": {"fk": 2, "chol": 2}, "render": {}, "ant_camera": {},
+    "franka_reach": {"fk": 2, "chol": 2}, "render": {}, "ant_camera": {"raycast": 1},
     "gym_balls": {"sphere_world": 2, "chol": 1}, "gym_franka_osc": {"fk": 2, "chol": 2},
-    "gym_interop": {"chol": 4}, "sharded_franka": {"fk": 2, "chol": 4},
+    "gym_interop": {"chol": 4, "raycast": 2}, "sharded_franka": {"fk": 2, "chol": 4},
     "sharded_balls": {"sphere_world": 2, "chol": 1},
 }
 # the kernel against its plain version on one substep (tests/test_torch_soft_kernel.py's
@@ -1532,41 +1538,184 @@ def render_phase(kernels) -> None:
     log(f"{name}: depth where both hit within {derr:.3e} m")
 
 
-def camera_phase(kernels) -> None:
-    """A CAMERA_SIZE CameraSensor on each of ANT_ENVS Ant envs: CAMERA_FRAMES
-    frames, each after randomize_colors, randomize_light and
-    randomize_camera_pose drawn from a generator on the card, counted; a
-    second run from the same seed bitwise equal."""
-    from test_isaacgym_tpu_torch import randomize as dr
+def ant_camera_scene(n):
+    """(sim, state, tables on the card with segmentation id 1, CameraSensor)
+    of the Ant camera cell's scene at n envs: the Ant envs at their reset
+    pose, a CAMERA_SIZE camera on each."""
     from test_isaacgym_tpu_torch.core.config import CameraProperties
     from test_isaacgym_tpu_torch.envs import rl_env
     from test_isaacgym_tpu_torch.render import raster
     from test_isaacgym_tpu_torch.render.camera import CameraSensor
 
     w, h = CAMERA_SIZE
-    name = f"ant_camera{ANT_ENVS}"
-    env = rl_env.make(task="Ant", num_envs=ANT_ENVS, sim_device=DEV, rl_device=DEV)
-    env.reset()
-    sim, st = env.sim, env.state
-    tb = raster.tables_from_scene(sim.scene)
+    env = rl_env.make(task="Ant", num_envs=n, sim_device=DEV, rl_device=DEV)
+    tb = raster.tables_from_scene(env.sim.scene, DEV)
+    tb = tb._replace(seg=torch.full_like(tb.seg, 1))
+    cam = CameraSensor(props=CameraProperties(width=w, height=h), num_envs=n, device=DEV)
+    return env.sim, env.state, tb, cam
+
+
+def ant_camera_frame(scene, gen):
+    """render_camera_batch's (arguments, keywords) of one frame of the Ant
+    camera cell on `scene` (ant_camera_scene's): the draws (an orbit pose,
+    per-shape colours, the light) from the generator `gen` on the card."""
+    from test_isaacgym_tpu_torch import randomize as dr
+    from test_isaacgym_tpu_torch.render import raster
+
+    sim, st, tb, cam = scene
+    n = sim.env_origins.shape[0]
+    pos, tgt = dr.randomize_camera_pose(gen, n, (0.0, 0.0, 0.4), device=DEV)
+    colors = dr.randomize_colors(gen, tb.color.expand(n, -1, -1))
+    light, ambient, d = dr.randomize_light(gen, DEV)
+    cam.set_locations(pos, tgt)
+    cp, cq = cam.world_pose(st, sim.env_origins)
     sp, sq = raster.shape_world_poses(st, sim.params, tb, sim.scene)
-    base = torch.as_tensor(tb.color, device=DEV).expand(ANT_ENVS, -1, -1)
-    origins = sim.env_origins
-    cam = CameraSensor(props=CameraProperties(width=w, height=h), num_envs=ANT_ENVS, device=DEV)
-    bg, ground = np.array([0.32, 0.45, 0.6], np.float32), np.array([0, 0, 1, 0], np.float32)
+    f32 = lambda x: torch.tensor(x, device=DEV)  # noqa: E731
+    args = (cp, cq, sp, sq, sim.params.shape_size, tb.kind, colors, tb.seg,
+            f32([0.0, 0.0, 1.0, 0.0]), d, light, ambient, f32([0.32, 0.45, 0.6]),
+            torch.full((n,), cam.props.horizontal_fov, device=DEV))
+    return args, dict(width=cam.props.width, height=cam.props.height,
+                      far=float(cam.props.far_plane))
+
+
+def gym_interop_frames(at):
+    """render_camera_batch's (arguments, keywords), cloned, as
+    render_all_camera_sensors calls it in examples/interop_torch.py's scene
+    at GYM_CAMERA_ENVS envs (a ball, the ground, a 128 x 128 camera each),
+    at each frame of `at` (counted from 1) of simulate + render."""
+    from test_isaacgym_tpu_torch import gymapi
+    from test_isaacgym_tpu_torch.envs import gym_scenes
+    from test_isaacgym_tpu_torch.render import raster
+
+    gym, sim, _, _ = gym_scenes.interop(gymapi, GYM_CAMERA_ENVS, {"device": DEV})
+    gym.prepare_sim(sim)
+    calls, real = [], raster.render_camera_batch
+    copy = lambda x: x.clone() if torch.is_tensor(x) else x  # noqa: E731
+
+    def record(*a, **kw):
+        calls.append((tuple(map(copy, a)), {k: copy(v) for k, v in kw.items()}))
+        return real(*a, **kw)
+
+    raster.render_camera_batch = record
+    try:
+        for k in range(1, max(at) + 1):
+            gym.simulate(sim)
+            gym.fetch_results(sim, True)
+            gym.step_graphics(sim)
+            if k in at:
+                gym.render_all_camera_sensors(sim)
+    finally:
+        raster.render_camera_batch = real
+    if len(calls) != len(at):
+        raise RuntimeError(f"interop's {len(at)} renders made {len(calls)} camera batches")
+    return calls
+
+
+# the raycast kernel's frames on the main paths: case -> a function giving
+# render_camera_batch's (arguments, keywords) of each frame held to the
+# plain ops. The Ant camera cell's first frame (timed) and interop's frames
+# as gym_interop renders them, mid-fall and at rest on the ground.
+RAYCAST_CASES = {
+    "ant camera": lambda: [ant_camera_frame(ant_camera_scene(ANT_ENVS),
+                                            torch.Generator(device=DEV).manual_seed(0))],
+    "gym interop": lambda: gym_interop_frames((1, GYM_CAMERA_FRAMES)),
+}
+
+
+def raycast_kernel_phase(kernels) -> dict:
+    """csrc/raycast.cu against the plain ops of render_camera_batch on each
+    of RAYCAST_CASES' frames: colour, depth and segmentation bit for bit,
+    one launch a frame, two launches bitwise equal. At the Ant camera cell's
+    shape, its device time alone by CUDA-graph replay, beside its operations
+    bound (portbench/harness/render_bound.py), the kernel's whole route (the
+    focal lengths and forward axes in eager ops, then the launch) and the
+    plain frame's time. Returns its entry of the {"kernels": ...} line."""
+    from portbench.harness.render_bound import render_bound
+    from test_isaacgym_tpu_torch.render import raster
+
+    t = time.perf_counter()
+    path = kernels.build("raycast")
+    log(f"build: raycast {time.perf_counter() - t:.2f} s -> {os.path.basename(path)}")
+    for line in kernels.build_logs.get("raycast", "").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log("  ptxas:", line.strip())
+    real = raster._kernel_frame
+
+    def plain(frame):
+        raster._kernel_frame = lambda *a: False
+        try:
+            return frame()
+        finally:
+            raster._kernel_frame = real
+
+    for case, frames in RAYCAST_CASES.items():
+        for k, (args, kw) in enumerate(frames()):
+            frame = lambda: raster.render_camera_batch(*args, **kw)[:3]  # noqa: E731
+            what = f"{case} frame {k}, {args[0].shape[0]} envs x {kw['width']}x{kw['height']}"
+            kernels.launches.clear()
+            got = frame()
+            if dict(kernels.launches) != {"raycast": 1}:
+                raise RuntimeError(f"{what}: one frame made these launches: "
+                                   f"{dict(kernels.launches)}")
+            want = plain(frame)
+            torch.cuda.synchronize()
+            differ = {name: int((a != b).sum())
+                      for name, a, b in zip(("rgba", "depth", "seg"), got, want)}
+            hit = float(torch.isfinite(want[1]).float().mean())
+            on = float((want[2] > 0).float().mean())
+            log(f"raycast kernel vs plain, {what}: values that differ {differ}; {hit:.4f} of the "
+                f"pixels hit, {on:.4f} on a segmented body")
+            if any(differ.values()):
+                raise RuntimeError(f"{what}: the raycast kernel is not bit for bit the plain ops")
+            if not all(torch.equal(a, b) for a, b in zip(got, frame())):
+                raise RuntimeError(f"{what}: two raycast launches on the same inputs differ")
+            if hit == 0.0 or on == 0.0:
+                raise RuntimeError(f"{what}: the frame shows no body")
+            if case == "ant camera":
+                timed = args, kw
+    args, kw = timed
+    frame = lambda: raster.render_camera_batch(*args, **kw)[:3]  # noqa: E731
+    cp, cq, sp, sq, size, kind, colors, seg, ground, d, light, ambient, sky, hfov = args
+    fx, fwd = raster._focal(kw["width"], hfov), raster._forward(cq)
+    kind = kind.expand(sp.shape[:2]).contiguous()
+    seg = seg.expand(sp.shape[:2]).contiguous()
+    launch = lambda: raster._raycast_cuda(  # noqa: E731
+        cp, cq, fx, fwd, sp, sq, size, kind, colors, seg, ground, d, light, ambient, sky, **kw)
+    kernel_ms = graph_ms(launch, reps=20)
+    frame_ms = graph_ms(frame, reps=20)
+    plain_ms = graph_ms(lambda: plain(frame), reps=5)
+    kinds = args[5].tolist()
+    bound_ms, bound_by = render_bound(
+        envs=ANT_ENVS, width=kw["width"], height=kw["height"],
+        spheres=kinds.count(raster.SHAPE_SPHERE), capsules=kinds.count(raster.SHAPE_CAPSULE),
+        ground=1)
+    log(f"raycast {ANT_ENVS} x {kw['width']}x{kw['height']} Ant cameras: kernel {kernel_ms:.5f} "
+        f"ms a frame, its route (focal lengths, forward axes, launch) {frame_ms:.5f} ms, plain "
+        f"{plain_ms:.5f} ms (device, CUDA-graph replay), bound {bound_ms:.6f} ms ({bound_by}): "
+        f"{100 * bound_ms / kernel_ms:.3f}% of it")
+    return {"name": "raycast", "route": "cuda", "source": "test_isaacgym_tpu_torch/csrc/raycast.cu",
+            "replaces": None, "max_abs_err": 0.0, "ms": kernel_ms, "frame_ms": frame_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def camera_phase(kernels) -> None:
+    """The Ant camera cell's scene at ANT_ENVS envs (ant_camera_scene):
+    CAMERA_FRAMES frames, each after its draws from a generator on the card
+    (ant_camera_frame), counted; a second run from the same seed bitwise
+    equal."""
+    from test_isaacgym_tpu_torch.render import raster
+
+    w, h = CAMERA_SIZE
+    name = f"ant_camera{ANT_ENVS}"
+    scene = ant_camera_scene(ANT_ENVS)
 
     def frames():
         gen = torch.Generator(device=DEV).manual_seed(0)
         out = []
         for _ in range(CAMERA_FRAMES):
-            colors = dr.randomize_colors(gen, base)
-            light, ambient, d = dr.randomize_light(gen, DEV)
-            pos, tgt = dr.randomize_camera_pose(gen, ANT_ENVS, (0.0, 0.0, 0.4), device=DEV)
-            cam.set_locations(pos, tgt)
-            cp, cq = cam.world_pose(st, origins)
-            out.append(raster.render_camera_batch(
-                cp, cq, sp, sq, sim.params.shape_size, tb.kind, colors, tb.seg, ground, d,
-                light, ambient, bg, cam.props.horizontal_fov, width=w, height=h, far=100.0)[:3])
+            args, kw = ant_camera_frame(scene, gen)
+            out.append(raster.render_camera_batch(*args, **kw)[:3])
         return out
 
     frames()  # warm
@@ -2179,6 +2328,7 @@ def main() -> int:
     phase_timed(ant_phase, _kernels)
     phase_timed(reach_phase, _kernels)
     phase_timed(render_phase, _kernels)
+    raycast_entry = phase_timed(raycast_kernel_phase, _kernels)
     phase_timed(camera_phase, _kernels)
 
     # ---- 9. the gymapi facade as the reference's scripts drive it: the
@@ -2201,7 +2351,7 @@ def main() -> int:
         log(f"kernel launches of {what}: {launches}")
     log(json.dumps({"kernels": [
         dict(entry, launches=sum(n.get(entry["name"], 0) for n in PATH_LAUNCHES.values()))
-        for entry in (sw_entry, fk_entry, chol_entry, xpbd_entry)]}))
+        for entry in (sw_entry, fk_entry, chol_entry, xpbd_entry, raycast_entry)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -7,11 +7,12 @@ name keyed on the hash of its source and flags: a fresh checkout builds what
 it runs, and an edited source rebuilds. Nothing here runs at import time.
 
 A wrapper launches its kernel through `entry` (the ctypes function, its
-types set once), `inputs` (the one check of what a kernel takes: float32,
-exact shapes, one CUDA device, no grad, as no kernel has a backward; the
-tensors come back contiguous, for the caller to keep alive until the launch
-is queued) and `launch` (the device made current, as a library launches on
-the current one; its current stream passed last; a nonzero return raised).
+types set once), `inputs` (the one check of what a kernel takes: float32
+unless an input names its dtype, exact shapes, one CUDA device, no grad, as
+no kernel has a backward; the tensors come back contiguous, for the caller
+to keep alive until the launch is queued) and `launch` (the device made
+current, as a library launches on the current one; its current stream
+passed last; a nonzero return raised).
 A kernel's own limits, its tables' device and its argument order stay in
 its wrapper.
 
@@ -39,9 +40,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# flags of one kernel beside NVCC_FLAGS: xpbd.cu and chol.cu follow their plain
-# versions' arithmetic operation by operation, so no multiply and add may be fused
-KERNEL_FLAGS = {"xpbd": ("-fmad=false",), "chol": ("-fmad=false",)}
+# flags of one kernel beside NVCC_FLAGS: xpbd.cu, chol.cu and raycast.cu follow their
+# plain versions' arithmetic operation by operation, so no multiply and add may be fused
+KERNEL_FLAGS = {"xpbd": ("-fmad=false",), "chol": ("-fmad=false",),
+                "raycast": ("-fmad=false",)}
 
 launches: collections.Counter = collections.Counter()
 build_logs: dict = {}  # kernel name -> nvcc/ptxas report of its last build
@@ -108,14 +110,16 @@ def entry(kernel: str, symbol: str, argtypes, restype=ctypes.c_int):
 def inputs(kernel: str, dev: torch.device, specs) -> list:
     """The tensors of `specs`, (name, tensor, shape) triples, made contiguous;
     raises ValueError before any library is loaded on the first that is not
-    float32 of that shape on `dev`, a CUDA device, or that requires grad."""
+    float32 of that shape on `dev`, a CUDA device, or that requires grad. A
+    spec (name, tensor, shape, dtype) asks for that dtype instead."""
     out = []
-    for name, t, shape in specs:
-        shape = tuple(shape)
-        if (dev.type != "cuda" or t.device != dev or t.dtype != torch.float32
+    for name, t, shape, *dtype in specs:
+        shape, dtype = tuple(shape), (dtype or [torch.float32])[0]
+        if (dev.type != "cuda" or t.device != dev or t.dtype != dtype
                 or tuple(t.shape) != shape or t.requires_grad):
             raise ValueError(
-                f"{kernel} kernel: {name} must be float32 {shape} on one CUDA device ({dev}) "
+                f"{kernel} kernel: {name} must be {str(dtype).removeprefix('torch.')} {shape} "
+                f"on one CUDA device ({dev}) "
                 f"and not a tensor that requires grad (the kernel has no backward); got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
                 + (" that requires grad" if t.requires_grad else ""))

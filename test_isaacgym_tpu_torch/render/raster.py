@@ -30,9 +30,17 @@ reductions over the shape axis (the 3-term dot products are written out),
 so the images are the same bits whatever the blocking. The hit attributes
 of a triangle are a gather by the winning index, the function of the JAX
 package's one-hot product `oh @ pack` with its one nonzero term.
+
+On a CUDA device, a frame that asks for the primitive pass alone (no
+texture, hull rows, triangles, soft triangles, lines or optical flow, and
+ss 1) is one launch of csrc/raycast.cu, which follows these ops' arithmetic
+in their order and gives their bits; its focal lengths and forward axes stay
+eager (`_kernel_frame`, `_raycast_cuda`). Every other frame, and every frame
+on the CPU, runs the ops below.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -42,6 +50,7 @@ import torch
 from ..assets.types import GEOM_MESH as GEOM_MESH_KIND
 from ..core.scene import SHAPE_BOX, SHAPE_CAPSULE, SHAPE_MESH, SHAPE_SPHERE, Scene
 from ..math.quat import const_rows, cross, quat_mul, quat_rotate, quat_rotate_inverse
+from ..ops import _kernels
 from ..utils.trace import span, stage
 
 BIG = 1e30
@@ -661,13 +670,22 @@ def render_rays(
     return rgba, t_out, hit, seg_img, best, hit_shape
 
 
+def _focal(props_w, hfov_deg):
+    """The focal length in pixels of each env's camera, (N,)."""
+    return props_w / 2 / torch.tan(hfov_deg * (math.pi / 180) / 2)
+
+
+def _forward(quat):
+    """The cameras' world forward axes (+x turned by quat), (N, 3)."""
+    return quat_rotate(quat, const_rows((1.0, 0.0, 0.0), quat))
+
+
 def camera_rays(props_w, props_h, hfov_deg, quat):
     """Pixel ray directions in WORLD frame. quat (N, 4) camera orientations;
     hfov_deg (N,) per-env horizontal fov. Returns (N, H*W, 3) and the
     forward axes (N, 3)."""
     with span("render.rays"):
-        t = torch.tan(hfov_deg * (math.pi / 180) / 2)
-        fx = props_w / 2 / t  # (N,)
+        fx = _focal(props_w, hfov_deg)
         dev = quat.device
         u = torch.arange(props_w, dtype=torch.float32, device=dev) + 0.5 - props_w / 2
         v = torch.arange(props_h, dtype=torch.float32, device=dev) + 0.5 - props_h / 2
@@ -677,7 +695,7 @@ def camera_rays(props_w, props_h, hfov_deg, quat):
                             -1).reshape(f.shape[0], -1, 3)
         d_cam = d_cam / _norm(d_cam, keepdim=True)
         d_w = quat_rotate(quat[:, None, :], d_cam)
-        return d_w, quat_rotate(quat, const_rows((1.0, 0.0, 0.0), quat))
+        return d_w, _forward(quat)
 
 
 def _t(x, dev, dtype=torch.float32):
@@ -769,7 +787,7 @@ def render_camera_batch(
         if do_cull:
             # bounding sphere vs view cone (conservative): keep the cull_max
             # nearest shapes that can intersect the frustum, in a stable order
-            fwd0 = quat_rotate(cam_quat, const_rows((1.0, 0.0, 0.0), cam_quat))
+            fwd0 = _forward(cam_quat)
             rel = sp - cam_pos[:, None, :]
             dist = _norm(rel)
             rad = _norm(ssize)
@@ -784,6 +802,14 @@ def render_camera_batch(
             sp, sq, ssize = _take(sp, keep), _take(sq, keep), _take(ssize, keep)
             col_k, kind_k, seg_k = _take(color, keep), _take(kind, keep), _take(seg, keep)
             tid_k = _take(tex_id, keep) if tex_id is not None else None
+        textured = tex is not None and tex_id is not None and tex.shape[0] > 0
+        if _kernel_frame(dev, ss, textured, use_mesh, use_tris, use_soft, use_lines, want_flow):
+            with span("render.rays"):
+                fx, fwd = _focal(rw, hfov), _forward(cam_quat)
+            with span("render.primitives"):
+                return _raycast_cuda(cam_pos, cam_quat, fx, fwd, sp, sq, ssize, kind_k, col_k,
+                                     seg_k, ground, light_dir, light_color, ambient, bg,
+                                     width=width, height=height, far=far) + (None,)
         dirs, fwd = camera_rays(rw, rh, hfov, cam_quat)
 
         tris = tri_excl = None
@@ -862,6 +888,50 @@ def render_camera_batch(
                 if flow is not None:
                     flow = flow.reshape(N, height, ss, width, ss, 2).mean((2, 4)) / ss
             return (rgba * 255).to(torch.uint8), depth, seg_img.to(torch.int32), flow
+
+
+def _kernel_frame(dev, ss, *passes) -> bool:
+    """Whether a frame goes to csrc/raycast.cu: on a CUDA device, at ss 1,
+    asking for no pass but the primitive one (`passes`: texture, hull rows,
+    triangles, soft triangles, lines, optical flow). Every other frame runs
+    the plain ops."""
+    return dev.type == "cuda" and ss == 1 and not any(passes)
+
+
+_P = ctypes.c_void_p
+_ARGTYPES = (
+    [_P] * 15  # the inputs, in _raycast_cuda's order
+    + [ctypes.c_float] + [ctypes.c_int] * 4  # far N S W H
+    + [_P] * 3  # rgba depth seg_img
+    + [_P]  # stream
+)
+
+
+def _raycast_cuda(cam_pos, cam_quat, focal, forward, sp, sq, ssize, kind, color, seg, ground,
+                  light_dir, light_color, ambient, sky, *, width, height, far):
+    """One launch of csrc/raycast.cu on the current stream: the frame
+    `render_camera_batch` renders with the primitive pass alone, as (rgba u8
+    (N, H, W, 4), depth (N, H, W), seg i32 (N, H, W)). focal (N,) and forward
+    (N, 3) are `_focal`'s and `_forward`'s. Takes float32 CUDA tensors of one
+    device (kind and seg int32) and raises on anything else."""
+    N, S = sp.shape[:2]
+    dev = cam_pos.device
+    args = _kernels.inputs("raycast", dev, (
+        ("cam_pos", cam_pos, (N, 3)), ("cam_quat", cam_quat, (N, 4)), ("focal", focal, (N,)),
+        ("forward", forward, (N, 3)), ("shape_pos", sp, (N, S, 3)),
+        ("shape_quat", sq, (N, S, 4)), ("shape_size", ssize, (N, S, 3)),
+        ("kind", kind, (N, S), torch.int32), ("color", color, (N, S, 3)),
+        ("seg", seg, (N, S), torch.int32), ("ground", ground, (4,)),
+        ("light_dir", light_dir, (3,)), ("light_color", light_color, (3,)),
+        ("ambient", ambient, (3,)), ("sky", sky, (3,))))
+    rgba = torch.empty((N, height, width, 4), dtype=torch.uint8, device=dev)
+    depth = torch.empty((N, height, width), dtype=torch.float32, device=dev)
+    seg_img = torch.empty((N, height, width), dtype=torch.int32, device=dev)
+    if rgba.numel():  # no pixel: nothing to launch
+        _kernels.launch("raycast", _kernels.entry("raycast", "raycast_forward", _ARGTYPES), dev,
+                        *(a.data_ptr() for a in args), far, N, S, width, height,
+                        rgba.data_ptr(), depth.data_ptr(), seg_img.data_ptr())
+    return rgba, depth, seg_img
 
 
 def shape_world_poses(state, params, tables: RenderTables, scene: Scene):

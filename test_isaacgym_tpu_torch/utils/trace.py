@@ -43,11 +43,15 @@ Spans, nested as the calls are:
     control.osc.mass_matrix  its runtime mass matrix
   render                   render/raster.py render_camera_batch, whole: a
                            frame of every env's camera
-    render.rays            camera_rays: the pixels' world ray directions
+    render.rays            camera_rays: the pixels' world ray directions; on
+                           csrc/raycast.cu's route, the focal lengths and
+                           forward axes alone
     render.primitives      render_rays' block loop of _primitive_block: the
-                           ray-shape tests, the ground, the shading
+                           ray-shape tests, the ground, the shading; on the
+                           kernel's route, its launch, which also packs
     render.pack            depth, optical flow when asked for, the reshapes,
-                           supersampling and the uint8 colour
+                           supersampling and the uint8 colour (the plain
+                           route only)
   render.poses             render/raster.py shape_world_poses: every shape's
                            world pose (called before render_camera_batch)
 

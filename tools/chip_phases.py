@@ -28,6 +28,9 @@ commit); PHASE names a phase of ROOT's chip_smoke.py:
     ant            ant_phase: make(task="Ant"), 4096 envs of the Ant stand-in
     franka_reach   reach_phase: make(task="Franka"), 4096 envs
     render         render_phase: bench.py's 1600 x 900 render config
+    raycast        raycast_kernel_phase: the raycast kernel on the Ant
+                   camera cell's frame and gym_interop's, bit for bit;
+                   timed at the Ant camera cell's shape
     ant_camera     camera_phase: a 64 x 48 camera on each of 4096 Ant envs
     gym_balls      gym_balls_phase: the 1080 balls through the gymapi facade
     gym_franka_osc gym_franka_osc_phase: examples/franka_osc.py's loop, 4096 envs
@@ -127,6 +130,7 @@ def main(root, phases):
         "ant": lambda: cs.ant_phase(k),
         "franka_reach": lambda: cs.reach_phase(k),
         "render": lambda: cs.render_phase(k),
+        "raycast": lambda: cs.raycast_kernel_phase(k),
         "ant_camera": lambda: cs.camera_phase(k),
         "gym_balls": lambda: cs.gym_balls_phase(k),
         "gym_franka_osc": lambda: cs.gym_franka_osc_phase(k),
